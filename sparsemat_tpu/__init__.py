@@ -1,8 +1,8 @@
-"""sparsemat_tpu — a TPU-native sparse linear-algebra framework.
+"""sparsemat_tpu — a sparse linear-algebra framework in JAX.
 
 A from-scratch rebuild of the capability surface of the ``sparsemat`` Rust
 library (reference: lostinc0de/sparsemat, see SURVEY.md) redesigned for
-TPU/XLA:
+accelerators through JAX/XLA:
 
 * two-phase lifecycle: a mutable host-side assembly **builder** (C++-backed
   hash accumulator, ≈ SparseMatIndexList) freezes into immutable device
@@ -10,7 +10,7 @@ TPU/XLA:
 * all algorithms are functional batch ops (sort / segment-scan / gather-FMA)
   that jit, vmap, and shard;
 * iterative solvers (CG, Jacobi, …) as ``lax.while_loop`` programs;
-* multi-chip scale-out via ``jax.sharding.Mesh`` + ``shard_map`` with
+* multi-device scale-out via ``jax.sharding.Mesh`` + ``shard_map`` with
   row-partitioned matrices and collective dot products (the realized version
   of the reference's commented-out thread parallelism,
   src/sparsemat_par.rs:37-68).

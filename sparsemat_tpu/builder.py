@@ -1,6 +1,6 @@
 """Mutable assembly phase: SparseBuilder and PartitionedBuilder.
 
-``SparseBuilder`` is the TPU-native successor of the reference's assembly
+``SparseBuilder`` is the successor of the reference's assembly
 format ``SparseMatIndexList`` (reference: src/sparsemat_indexlist.rs:14-21)
 and of the per-row ``SparseMatRowVec`` (src/sparsemat_rowvec.rs).  Semantics
 preserved (SURVEY.md §3.1):

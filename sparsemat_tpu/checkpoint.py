@@ -2,7 +2,7 @@
 
 The reference has no persistence at all — its only serialization is one-way
 debug text (reference: src/sparsematrix.rs:284-338; SURVEY.md §5 flags
-checkpoint/resume as a new capability the TPU build must supply).  This
+checkpoint/resume as a new capability this build must supply).  This
 module provides:
 
 * ``save_matrix`` / ``load_matrix`` — any frozen format round-trips through

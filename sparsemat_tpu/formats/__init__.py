@@ -5,10 +5,10 @@ Format map vs the reference (see SURVEY.md §2):
 * ``COO``  ≈ the frozen snapshot of ``SparseMatIndexList``
   (src/sparsemat_indexlist.rs) — flat triplets, assembly output.
 * ``CSR``  ≈ ``SparseMatCRS`` (src/sparsemat_crs.rs) — canonical compute.
-* ``ELL``  — TPU-regular padded layout (no reference counterpart; replaces
+* ``ELL``  — regular padded layout (no reference counterpart; replaces
   the serial row loop with vectorizable rectangles).
 * ``SELL`` — sliced ELL for skewed nnz/row distributions.
-* ``BSR``  — blocked rows for MXU matmuls (SpMM path).
+* ``BSR``  — blocked rows for batched dense block matmuls (SpMM path).
 
 The ragged ``SparseMatRowVec`` (src/sparsemat_rowvec.rs) cannot be a
 static-shape *device* layout; its API parity lives in the host-side
@@ -34,32 +34,20 @@ __all__ = ["SparseFormat", "BSR", "COO", "CSR", "DIA", "ELL", "GELL",
            "SlabStream", "StripELL", "StripPart", "WELL", "auto_format"]
 
 
-def auto_format(mat, *, max_diags: int = 48, max_ell_waste: float = 2.0,
-                max_slab_waste: float = 24.0):
-    """Pick the fastest compute format for a frozen matrix (host-side).
+def auto_format(mat, *, max_diags: int = 48):
+    """Pick the compute format for a frozen matrix (host-side).
 
     Heuristic (≈ the per-matrix kernel dispatch SURVEY.md §7 M3 calls for),
-    ordered by measured on-chip (v5e) throughput:
+    ordered by SpMV throughput measured on an H100 (PERF.md, bring-up):
 
-    * few distinct diagonals → DIA (gather-free shifted FMAs — the
-      speed-of-light path, ~90 Gnnz/s on a 5-diagonal 16M-row band);
-    * tight nnz/row distribution → ELL (padding waste below
-      ``max_ell_waste``×);
-    * scattered rows with bounded span (x windows fit in VMEM) → SlabELL.
-      The waste cap is deliberately generous: measured on a pwtk-class
-      surrogate, slab at ×14 padding still ran ~10× faster than the XLA
-      gather stream (6.7 vs 0.6 Gnnz/s) — padded streaming beats
-      per-element gathers on TPU;
-    * skewed distribution on a non-TPU backend → SELL (per-slice padding;
-      it has no Pallas kernel, so on TPU it would land on the slow COO
-      stream — skipped there);
-    * global scatter (e.g. scircuit) on TPU → RouteStream, the statically-
-      routed two-kernel Pallas path (XLA gathers and scatters both run
-      ~0.13 G elem/s per element on TPU — only routed Pallas streaming
-      wins this regime); off-TPU or when its VMEM residency doesn't fit →
-      GELL, the scatter-free XLA ladder.
+    * few distinct diagonals → DIA (static shifted slices: one fused pass);
+    * everything else → GELL, the gather ladder.  It beat the CSR stream,
+      ELL, SELL, StripELL, SlabPack and RouteStream on every matrix
+      measured: FEM surrogates at ELL padding 2.26×, 1.86× and 1.57×
+      (169 / 248 / 266 Gnnz/s against ELL's 148 / 195 / 236) and the
+      scattered circuit surrogate at 171k and 4M rows (40.1 and 40.6
+      against ≤ 31.3).
     """
-    import jax
     import numpy as np
 
     csr = mat.to_csr()
@@ -68,58 +56,4 @@ def auto_format(mat, *, max_diags: int = 48, max_ell_waste: float = 2.0,
         return csr
     if DIA.diagonal_count(csr) <= max_diags:
         return DIA.from_csr(csr)
-    kmax = csr.max_row_nnz()
-    n_rows = csr.shape[0]
-    if kmax * n_rows <= max_ell_waste * nnz:
-        return ELL.from_csr(csr)
-    d = jax.devices()[0]
-    on_tpu = "tpu" in d.platform.lower() or "TPU" in getattr(d, "device_kind", "")
-    if not on_tpu:
-        sell = SELL.from_csr(csr, slice_height=8)
-        if sell.nse <= max_ell_waste * nnz:
-            return sell
-    # bounded-span scattered rows: StripELL packs at height granularity 1
-    # (~2x less traffic than SlabPack's 8-sublane window buckets); its
-    # freeze raises ValueError when a 128-row block's span exceeds the
-    # x^T-tile reach, in which case SlabPack/RouteStream take over
-    try:
-        strip = StripELL.from_csr(csr)
-        if strip.nse <= max_slab_waste * nnz:
-            return strip
-    except ValueError:
-        pass
-    # cheap lower bound on SlabPack's padded slots BEFORE the freeze: each
-    # distinct (row-block, column-window) bucket costs >= SUBLANE slots x
-    # row_block lanes.  Without this guard a global-scatter operand builds
-    # the full layout just to fail the waste test afterwards — measured on
-    # the scircuit surrogate: a 1.8e9-slot, 13 GB, 52 s freeze.
-    import numpy as _np
-
-    from .slab import SLAB_ROW_BLOCK, SUBLANE
-
-    _indptr = csr.host("indptr").astype(_np.int64)
-    _rows = _np.repeat(_np.arange(csr.shape[0], dtype=_np.int64),
-                       _np.diff(_indptr))
-    _wins = csr.host("indices").astype(_np.int64) // 128
-    _nwin = max(-(-csr.shape[1] // 128), 1)
-    _pairs = _np.unique((_rows // SLAB_ROW_BLOCK) * _nwin + _wins).size
-    slab_lb = _pairs * SUBLANE * SLAB_ROW_BLOCK
-    if slab_lb <= max_slab_waste * nnz:
-        slab = SlabPack.from_csr(csr)
-        if (slab.x_bytes() <= 8 * 1024 * 1024
-                and slab.nse <= max_slab_waste * nnz):
-            return slab
-    if on_tpu:
-        # cheap pre-estimate BEFORE the host-CPU-bound freeze (r4 advisor:
-        # freezing first and discarding on the guard wasted the whole
-        # freeze).  Staging rows are bounded below by nnz/128 (each staging
-        # row holds ≤128 products), so if even that lower bound busts the
-        # VMEM guard the freeze cannot pass it either.
-        est_staging = (nnz // 128 + 128) * 128 * 4
-        x_b = (-(-csr.shape[1] // 128)) * 128 * 4
-        if est_staging + x_b <= 12 * 1024 * 1024:
-            rs = RouteStream.from_csr(csr)
-            if (rs.vmem_resident_bytes() <= 12 * 1024 * 1024
-                    and rs.smem_prefetch_bytes() <= 768 * 1024):
-                return rs
     return GELL.from_csr(csr)

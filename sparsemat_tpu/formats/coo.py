@@ -1,6 +1,6 @@
 """COO (coordinate) format — the frozen snapshot of the assembly phase.
 
-TPU-native successor of the reference's append-oriented ``SparseMatIndexList``
+Successor of the reference's append-oriented ``SparseMatIndexList``
 (reference: src/sparsemat_indexlist.rs:14-21 — flat columns/values arrays plus
 a linked-list-in-arrays row index).  A pointer-chase index structure is
 hostile to a vector machine, so the frozen COO stores three flat arrays and

@@ -1,6 +1,6 @@
 """CSR — the canonical frozen compute format.
 
-TPU-native successor of the reference's ``SparseMatCRS``
+Successor of the reference's ``SparseMatCRS``
 (reference: src/sparsemat_crs.rs:9-17 — values/columns/offset_rows arrays).
 Differences by design:
 

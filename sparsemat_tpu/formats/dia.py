@@ -7,8 +7,8 @@ Poisson stencils, the BASELINE bench configs 1/3/5 — store one value per
 
     y[i] = Σ_d  data[d, i] · x[i + offset_d]
 
-which on TPU is a handful of *shifted dense reads* and FMAs: no index
-arrays, no gather, no scatter — pure VPU streaming at HBM speed-of-light.
+which is a handful of *shifted dense reads* and FMAs: no index arrays, no
+gather, no scatter — one streaming pass over the diagonals.
 This is the format the dispatch layer auto-selects when a frozen matrix is
 (mostly) diagonal-structured.
 """
@@ -41,16 +41,6 @@ class DIA(SparseFormat):
     data: jax.Array = array_field()
     offsets: Tuple[int, ...] = static_field()
     shape: Tuple[int, int] = static_field()
-    #: optional lane-packed copy of ``data``: (n_diags, ceil(n/128), 128).
-    #: A 2-D (n_d, n) array with n_d < 8 is stored in (8,128)-padded tiles —
-    #: reading it moves 8/n_d× the logical bytes (measured 1.6× at n_d=5,
-    #: the whole gap between the r3 DIA kernel at ~500 GB/s and the chip's
-    #: ~720 GB/s demonstrated stream rate).  The packed 3-D layout tiles the
-    #: LAST two dims, wasting nothing; the Pallas kernel uses it when
-    #: present (costs a second copy of the diagonals in HBM — call
-    #: ``without_tiled()`` to drop it).
-    tdata: object = dataclasses.field(default=None,
-                                      metadata={"pytree_node": True})
 
     @classmethod
     def from_csr(cls, csr) -> "DIA":
@@ -63,27 +53,11 @@ class DIA(SparseFormat):
         valid = rows < n_rows
         rows, cols, vals = rows[valid], cols[valid], vals[valid]
         offs = np.unique(cols.astype(np.int64) - rows.astype(np.int64))
-        off_pos = {int(o): k for k, o in enumerate(offs)}
         data = np.zeros((len(offs), n_rows), vals.dtype)
-        d_idx = np.array([off_pos[int(o)] for o in (cols.astype(np.int64) - rows)])
+        d_idx = np.searchsorted(offs, cols.astype(np.int64) - rows)
         data[d_idx, rows] = vals
-        pad = -n_rows % 128
-        tdata = np.pad(data, ((0, 0), (0, pad))).reshape(len(offs), -1, 128)
         return cls(data=jnp.asarray(data), offsets=tuple(int(o) for o in offs),
-                   shape=csr.shape, tdata=jnp.asarray(tdata))
-
-    def with_tiled(self) -> "DIA":
-        """Attach the lane-packed companion (device-side reshape+copy; do
-        this OUTSIDE any timed/jitted region)."""
-        if self.tdata is not None:
-            return self
-        pad = -int(self.data.shape[1]) % 128
-        td = jnp.pad(self.data, ((0, 0), (0, pad))).reshape(
-            self.data.shape[0], -1, 128)
-        return dataclasses.replace(self, tdata=td)
-
-    def without_tiled(self) -> "DIA":
-        return dataclasses.replace(self, tdata=None)
+                   shape=csr.shape)
 
     @staticmethod
     def diagonal_count(csr) -> int:
@@ -131,9 +105,7 @@ class DIA(SparseFormat):
 
     def scale(self, scalar) -> "DIA":
         s = jnp.asarray(scalar, self.data.dtype)
-        return dataclasses.replace(
-            self, data=self.data * s,
-            tdata=None if self.tdata is None else self.tdata * s)
+        return dataclasses.replace(self, data=self.data * s)
 
     def diagonal(self) -> jax.Array:
         if 0 in self.offsets:

@@ -1,11 +1,10 @@
-"""ELL (ELLPACK) — the TPU-regular SpMV/SpMM format.
+"""ELL (ELLPACK) — the regular padded SpMV/SpMM format.
 
 No reference counterpart: the reference's SpMV is a serial row loop over a
 pointer-chase iterator (reference: src/sparsematrix.rs:146-158,
-src/indexlist.rs:104-111).  On TPU the winning layout is a dense rectangle:
-every row padded to ``K = max nnz/row`` entries, so SpMV becomes K vectorized
-gather-multiply-accumulate sweeps with static shapes — pure VPU work with no
-data-dependent control flow.  Rows are padded with (col=0, val=0) which is
+src/indexlist.rs:104-111).  Here every row is padded to ``K = max nnz/row``
+entries, so SpMV becomes K vectorized gather-multiply-accumulate sweeps with
+static shapes and no data-dependent control flow.  Rows are padded with (col=0, val=0) which is
 gather-safe and accumulation-neutral.
 
 For matrices with skewed nnz/row distributions use SELL (sell.py) or the

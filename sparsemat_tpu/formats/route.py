@@ -1,45 +1,20 @@
-"""RouteStream — statically-routed product stream: the TPU format for
-*globally scattered* matrices (the scircuit regime, BASELINE config 4).
+"""RouteStream — statically-routed product stream for *globally scattered*
+matrices (the scircuit regime, BASELINE config 4).
 
-Problem.  On a matrix whose entries scatter uniformly over both rows and
-columns, every bucketed format degenerates: a (row-block × column-window)
-bucket holds ~1 entry, so SlabStream/WELL inflate 100-2000×, and the XLA
-gather/scatter stream runs at ~0.13 G elem/s (~7.5 ns/element, CLAUDE.md).
-GELL (r3) lost to the CSR stream for the same reason — its ladder still
-gathers x per entry through XLA.
+All routing is decided at FREEZE time.  Entries are sorted by column
+window and packed into 128-entry *A-rows* (one x window per row); per
+*supertile* (128 A-rows) a static 3-phase permutation (lane-gather →
+transpose → lane-gather → transpose → lane-gather, Hall routing tables from
+a vectorized Euler-halving edge coloring) lands every product on its
+exclusive *staging* slot.  Staging is laid out so each 128-lane row holds
+whole matrix-row segments of one output window; a per-region prefix sum
+(one triangular matmul) and two static extractions give the row sums.
 
-Design.  All routing is decided at FREEZE time; at runtime only four fast
-TPU primitives run (each verified on-chip): 128-lane ``take_along_axis``
-gathers, (128,128) transposes, dynamic (1,128) sublane loads/stores, and
-MXU matmuls.  SpMV is two Pallas kernels:
-
-* **Kernel 1 (gather-route).** Entries are pre-sorted by column window and
-  packed into 128-entry *A-rows* (one x window per row, ~9% padding).  Per
-  *supertile* (128 A-rows = 16384 slots) the kernel pulls each row's x
-  window by one dynamic sublane slice, gathers with ``take_along_axis``,
-  multiplies by the values — then applies a static 3-phase permutation
-  (lane-gather → transpose → lane-gather → transpose → lane-gather, Hall
-  routing tables computed at freeze by a vectorized Euler-halving edge
-  coloring) that lands every product on its exclusive final *staging*
-  slot, and accumulates the permuted rows into a VMEM-resident staging
-  buffer by dynamic-row adds (slot ownership is exclusive, so ``+=`` of
-  zero-padded rows needs no masks beyond the split mask).
-* **Kernel 2 (segmented reduce).** Staging is laid out at freeze so each
-  128-lane staging row holds whole matrix-row segments of ONE output
-  window (lane of a segment's sum = row % 128).  Per 128-row *region* the
-  kernel computes an inclusive prefix sum along lanes with one MXU
-  triangular matmul, extracts segment sums with two static
-  ``take_along_axis`` tables, and accumulates (1,128) rows into the
-  VMEM-resident output.
-
-Traffic ≈ 14-40 B/entry (values + indices + routing tables + staging
-round-trip), compute ≈ 0.1 VPU-ops/entry — both orders of magnitude below
-the ~7.5 ns/element XLA per-element floor.  Replaces the reference's
-serial row loop (reference: src/sparsematrix.rs:146-158) for matrices with
-no band/window structure.
-
-VMEM bounds (x + staging + y resident) limit the kernel path to ~1.5M-nnz
-shards; ``ops.spmv`` guards and falls back to the XLA emulation.
+The layout was built for a 128-lane window-gather unit with no scatter.
+Its SpMV here is the table replay in ``kernels/route.py`` — on an H100
+100-400× slower than GELL (PERF.md) — so it is off the automatic path.
+Replaces the reference's serial row loop (reference:
+src/sparsematrix.rs:146-158) for matrices with no band/window structure.
 """
 
 from __future__ import annotations
@@ -535,26 +510,6 @@ class RouteStream(SparseFormat):
 
     def y_windows(self) -> int:
         return max(-(-self.shape[0] // LANE), 1)
-
-    def vmem_resident_bytes(self, itemsize: int = 4) -> int:
-        """Kernel-1 peak VMEM (dispatch guard): resident staging + x PLUS
-        the triple-buffered per-grid-step blocks — 4 routing tables + vals
-        + lidx of (n_splits, 128, 128)/(128, 128) each.  r4 counted only
-        staging + max(x, y), so a large-n_splits matrix could pass the
-        guard yet blow Mosaic's 16 MB scoped-VMEM limit at compile time
-        with no XLA fallback (r4 advisor)."""
-        staging = (self.n_regions * REG_ROWS + SUP_ROWS) * LANE * itemsize
-        x = self.x_windows() * LANE * itemsize
-        y = (self.y_windows() + 1) * LANE * itemsize
-        per_step = (4 * self.n_splits + 2) * SUP_ROWS * LANE * itemsize
-        scratch = (2 * SUP_ROWS + 8) * LANE * itemsize
-        return staging + max(x, y) + 3 * per_step + scratch
-
-    def smem_prefetch_bytes(self) -> int:
-        """Kernel-1 scalar-prefetch footprint (``touch`` + ``a_win``) —
-        checked against the ~1 MB SMEM budget in the spmv dispatch."""
-        return (self.n_sup * self.n_splits * SUP_ROWS * 4
-                + self.n_sup * SUP_ROWS * 4)
 
     def spmv_traffic_bytes(self) -> int:
         """Layout speed-of-light bytes: every kernel-read array once, the

@@ -4,13 +4,11 @@ No reference counterpart (the reference has a single serial SpMV loop,
 src/sparsematrix.rs:146-158).  ELL pads every row to the global max nnz/row;
 for power-law matrices that wastes HBM bandwidth.  SELL-C-σ sorts rows by
 nnz within windows of σ rows, groups them into slices of C rows, and pads
-only to each slice's own max — classic SIMD sparse layout, mapped here to
-TPU tiles (C = 8 sublanes).
+only to each slice's own max — the classic SIMD sparse layout (C = 8).
 
 Storage is the *flattened slot stream* (slot_rows / slot_cols / slot_vals)
-ordered slice-major so a Pallas kernel can walk contiguous slices via the
-``slice_offsets`` scalar-prefetch array; the generic compute path treats it
-as padded COO (padding slots: row = n_rows, col = 0, val = 0).
+ordered slice-major, with ``slice_offsets`` marking the slices; the SpMV
+treats it as padded COO (padding slots: row = n_rows, col = 0, val = 0).
 """
 
 from __future__ import annotations

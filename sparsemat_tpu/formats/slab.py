@@ -1,35 +1,18 @@
-"""SlabELL — slab-windowed, window-bucketed ELL: the Pallas format for
-*scattered* rows with bounded column span (the SuiteSparse/FEM regime —
-BASELINE.md pwtk/cant).
+"""SlabELL — slab-windowed, window-bucketed ELL for *scattered* rows with
+bounded column span (the SuiteSparse/FEM regime — BASELINE.md pwtk/cant).
 
-Motivation.  WELL (well.py) keys tiles by (8-row block, single 128-column
-window); on matrices whose rows scatter ~50 entries across a wide band, each
-tile holds 1-2 entries, the tile count explodes into the millions, and the
-kernel drowns in per-grid-step overhead.  A first SlabELL cut kept the CSR
-row-major ELL layout and swept all S windows of the block's slab with masked
-gathers — measured compute-bound at ~6 ops × S per stored entry (the mask
-sweep, not the gather, dominates), with the misaligned (rows, K) trailing
-dim halving DMA bandwidth on top.
+Each 128·k-row block's entries are regrouped by the 128-column window they
+fall in (*window buckets*); bucket heights are static (global max per
+window, rounded to 8 rows), so padding replaces masking:
 
-This layout removes both costs:
+* ``vals``/``lidx`` are (n_rb, C, RB) with the row block on the last axis;
+* ``win_lo[block]`` is the first x window of the block's slab of S
+  windows; slot (c, r) of bucket w reads x[(win_lo + w)·128 + lidx].
 
-* **window buckets** — each block's entries are regrouped by the 128-column
-  window they fall in.  The kernel loops the S buckets and processes each
-  with ONE unmasked 128-lane gather + FMA per sublane group: no window
-  masking at all.  Bucket heights are static (global max per window,
-  rounded to the 8-sublane granule), so padding replaces masking.
-* **transposed tiles** — ``vals``/``lidx`` are (n_rb, C, RB) with the
-  row-block on the 128-lane axis (RB a multiple of 128), so every DMA is
-  lane-aligned.
-* **x resident in VMEM** — the operand vector is reshaped to (n_win, 128)
-  windows and passed as a whole-array block; each bucket reads its window
-  by one dynamic sublane slice (``win_lo[block] + w``), so there is no
-  per-step manual DMA or semaphore traffic.
-
-Traffic per SpMV ≈ C/K × ELL bytes (the bucket-padding inflation, typically
-1.5-3× for banded scatter) but the kernel does ~4 vector ops per stored
-slot instead of ~6 × S — on pwtk-like matrices this is the difference
-between compute-bound at 7% of the HBM roofline and bandwidth-bound.
+The layout was built for a 128-lane window-gather unit; its SpMV here is
+the per-slot gather of ``kernels/spmv.py``.  Traffic per SpMV ≈ C/K × ELL
+bytes (the bucket-padding inflation, typically 1.5-3× for banded
+scatter).  SlabPack and SlabStream below cut that padding.
 """
 
 from __future__ import annotations
@@ -235,10 +218,6 @@ class SlabELL(SparseFormat):
         """Windows of the operand vector incl. slab overrun slack."""
         return -(-self.shape[1] // WINDOW) + self.slab_windows
 
-    def x_bytes(self, itemsize: int = 4) -> int:
-        """VMEM footprint of the resident operand vector (dispatch guard)."""
-        return self.x_windows() * WINDOW * itemsize
-
 
 # --- SlabPack: per-block-class bucket heights ---------------------------------
 
@@ -252,9 +231,9 @@ class SlabPack(SparseFormat):
     traffic on a pwtk-class FEM surrogate).  SlabPack instead groups the
     row blocks into ``n_classes`` classes by their exact (8-rounded)
     per-window height profiles; each class becomes a homogeneous
-    :class:`SlabELL` part padded only to the CLASS max.  SpMV runs one
-    Pallas call per part and recombines the block rows by a static
-    permutation (a block-granular gather — 1 KB rows, negligible).
+    :class:`SlabELL` part padded only to the CLASS max.  SpMV runs once
+    per part and recombines the block rows by a static permutation (a
+    block-granular gather — 1 KB rows, negligible).
 
     Bucket heights additionally carry a *spill budget*: the height of a
     (class, window) bucket is the smallest 8-multiple that keeps at least
@@ -508,19 +487,6 @@ class SlabPack(SparseFormat):
         n = int(np.asarray(self.n_non_zero_entries()))
         return n / max(self.nse, 1)
 
-    def x_bytes(self, itemsize: int = 4) -> int:
-        b = max(p.x_bytes(itemsize) for p in self.parts)
-        if self.overflow is not None:
-            b = max(b, self.overflow.x_bytes(itemsize))
-        return b
-
-    def max_part_tile_bytes(self) -> int:
-        """Largest per-part (C, RB) tile pair — VMEM dispatch guard."""
-        b = max(p.c_total * p.row_block * 8 for p in self.parts)
-        if self.overflow is not None:
-            b = max(b, self.overflow.max_part_tile_bytes())
-        return b
-
     def spmv_traffic_bytes(self) -> int:
         """Layout speed-of-light bytes: every part's streamed arrays once,
         plus one x read and one y write (parts share the operand)."""
@@ -553,16 +519,13 @@ class SlabStream(SparseFormat):
     (measured 14.2× / 10.4× traffic inflation on a pwtk-class surrogate at
     full scale).  SlabStream stores each (row-block, x-window) bucket at
     its EXACT 8-rounded height: buckets are split into 8-sublane chunks and
-    all chunks concatenate into one (N, 8, RB) stream; two scalar-prefetch
-    arrays route each chunk to its x window and its output block.  One
-    Pallas kernel walks the stream, keeping the whole operand vector AND
-    the whole output resident in VMEM (accumulating via dynamic-sublane
-    read-modify-write — the grid is sequential on a TPU core, so this is
-    race-free).  No classes, no per-class compile, no recombination gather.
+    all chunks concatenate into one (N, 8, RB) stream; two index arrays
+    route each chunk to its x window and its output block, and the SpMV
+    scatter-adds each chunk's sums into its block.  No classes, no
+    recombination gather.
 
     Successor of the same serial row loop as SlabELL (reference:
-    src/sparsematrix.rs:146-158).  VMEM bounds (x + y resident) limit it to
-    matrices with ≲1.5M rows/cols; ops.spmv guards and falls back.
+    src/sparsematrix.rs:146-158).
 
     ``vals``/``lidx``: (N, 8, RB); ``win_id``/``blk_id``: (N,) int32
     (absolute x-window / output block per chunk); ``cnt8``: (N, RB) int32 —
@@ -704,8 +667,3 @@ class SlabStream(SparseFormat):
 
     def x_windows(self) -> int:
         return max(-(-self.shape[1] // WINDOW), 1)
-
-    def vmem_resident_bytes(self, itemsize: int = 4) -> int:
-        """Operand + output VMEM residency (dispatch guard)."""
-        y_rows = (self.n_row_blocks + 1) * self.row_block
-        return (self.x_windows() * WINDOW + y_rows) * itemsize

@@ -18,20 +18,17 @@ packs at height granularity 1:
 * strips of ALL the block's windows concatenate into one (c_total, 128)
   tile (8-sublane padding happens once per BLOCK, not once per window);
 * the per-strip window indices live in a separate (c_total,) side array
-  (``wrel``, relative to a per-block 128-window tile of xᵀ), so the
-  8-at-a-time gather constraint moves from the data layout to the x
-  ASSEMBLY — resolved in-kernel by one (128,128) lane-gather + transpose
-  per 128 strips (see kernels/strip.py), the only vectorized cross-window
-  selection TPU supports.
+  (``wrel``, relative to a per-group base window ``wtile``·32), so the
+  SpMV (kernels/strip.py) gathers x at (wtile·32 + wrel)·128 + lidx.
 
-Measured on the fem_217k surrogate: 872 MB → ~410 MB per SpMV (38 B/nnz),
-fill 0.21.  Blocks are classed by strip count (SlabPack-style histogram
-split) so per-class ``c_total`` padding stays small.
+Blocks are classed by strip count (SlabPack-style histogram split) so
+per-class ``c_total`` padding stays small.  The layout was built for a
+128-lane window-gather unit; on the H100 its SpMV lost to GELL and ELL on
+the fem surrogate (PERF.md), so it is off the automatic path.
 
-Constraint: every 128-row block's windows must fit one 128-window xᵀ tile
-(tiles are built at 32-window stride → max span 96 windows = 12,288
-columns).  ``from_csr`` raises ``ValueError`` beyond that — callers fall
-back to SlabPack/RouteStream (see formats.auto_format).
+Constraint: every block group's windows must fit one 128-window span
+starting at a 32-window stride (max span 96 windows = 12,288 columns).
+``from_csr`` raises ``ValueError`` beyond that.
 """
 
 from __future__ import annotations
@@ -191,11 +188,9 @@ class StripELL(SparseFormat):
         has = wmax >= 0
         wmin[~has] = 0
         wmax[~has] = 0
-        # clamp to the LAST tile build_xt_tiles actually materializes —
-        # tiles overlap (stride 32, width 128), so high-wmin groups are
-        # covered by the final tile; an unclamped wmin//stride would index
-        # past the tile array (out-of-range BlockSpec = silent garbage or
-        # a FailedPrecondition fault, both observed on-chip)
+        # clamp to the LAST tile of the padded x — tiles overlap (stride
+        # 32, width 128), so high-wmin groups are covered by the final
+        # tile; an unclamped wmin//stride would point past the end of x
         n_tiles = max(-(-max(n_win - (WINDOW - TILE_STRIDE), 0)
                         // TILE_STRIDE), 0) + 1
         wtile_g = np.minimum(wmin // TILE_STRIDE, n_tiles - 1)
@@ -335,15 +330,9 @@ class StripELL(SparseFormat):
         n = int(np.asarray(self.n_non_zero_entries()))
         return n / max(self.nse, 1)
 
-    def n_xt_tiles(self) -> int:
-        n_win = max(-(-self.shape[1] // WINDOW), 1)
-        return max(-(-max(n_win - (WINDOW - TILE_STRIDE), 0)
-                     // TILE_STRIDE), 0) + 1
-
     def spmv_traffic_bytes(self) -> int:
-        """Layout speed-of-light bytes per SpMV: every kernel-read array
-        once (vals+lidx+wrel+wtile), the xᵀ tile build (x read + tiles
-        written + read back = (1 + 2·128/TILE_STRIDE)·x), y written once."""
+        """Layout speed-of-light bytes per SpMV: every array the SpMV reads
+        once (vals+lidx+wrel+wtile), x read once, y written once."""
         from ..types import accum_dtype
 
         total = 0
@@ -352,7 +341,7 @@ class StripELL(SparseFormat):
             total += p.lidx.size * jnp.dtype(p.lidx.dtype).itemsize
             total += p.wrel.size * 4 + p.wtile.size * 4
         xb = self.shape[1] * jnp.dtype(self.dtype).itemsize
-        total += xb * (1 + 2 * (WINDOW // TILE_STRIDE))
+        total += xb
         total += self.shape[0] * jnp.dtype(accum_dtype(self.dtype)).itemsize
         return int(total)
 
@@ -365,17 +354,3 @@ def _empty_part(shape, block_ids, dtype):
                      wtile=jnp.zeros((nb,), jnp.int32),
                      occ=jnp.zeros((nb, SUBLANE, RB), bool),
                      block_ids=tuple(block_ids), shape=shape)
-
-
-def build_xt_tiles(x: jax.Array, n_cols: int) -> jax.Array:
-    """(n_tiles, 128, 128) transposed x tiles at TILE_STRIDE-window stride:
-    tiles[t, r, j] = x[(TILE_STRIDE·t + j)·128 + r] (zero-padded)."""
-    n_win = max(-(-n_cols // WINDOW), 1)
-    n_tiles = max(-(-max(n_win - (WINDOW - TILE_STRIDE), 0)
-                    // TILE_STRIDE), 0) + 1
-    need = (TILE_STRIDE * (n_tiles - 1) + WINDOW) * WINDOW
-    xp = jnp.pad(x, (0, need - x.shape[0])).reshape(-1, WINDOW)
-    starts = np.arange(n_tiles) * TILE_STRIDE
-    rows = starts[:, None] + np.arange(WINDOW)[None, :]
-    tiles = xp[jnp.asarray(rows)]              # (n_tiles, 128 win, 128 lane)
-    return jnp.transpose(tiles, (0, 2, 1))     # (n_tiles, lane, win)

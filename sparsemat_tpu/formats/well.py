@@ -1,27 +1,21 @@
-"""WELL — windowed ELLPACK: the Pallas-kernel format for general matrices.
+"""WELL — windowed ELLPACK for general matrices.
 
 No reference counterpart (the reference's SpMV is a serial pointer-chase,
-src/sparsematrix.rs:146-158).  Motivation: XLA lowers large arbitrary
-gathers/scatters on TPU to serialized loops — the CSR stream path runs ~50×
-slower than the hardware can.  Mosaic *does* support vectorized dynamic
-gather along the 128-lane axis within a tile (``take_along_axis`` on
-(8,128) operands).  WELL restructures the matrix so every x-gather is such
-an in-register gather:
+src/sparsematrix.rs:146-158).  WELL groups the matrix so every x access is
+a gather within one 128-wide column window:
 
-* rows are grouped in blocks of 8 (f32 sublane count);
+* rows are grouped in blocks of 8;
 * each row's entries are partitioned by 128-wide *column windows*;
 * each (row-block, window) pair with entries becomes a tile holding up to K
   entries per row: ``vals``/``lidx`` of shape (8, K), lidx = column within
   the window;
-* tiles are sorted by (row-block, window) so the Pallas kernel's output
-  block revisits are consecutive, and per-tile scalar arrays
-  (``tile_rows``, ``tile_wins``) drive BlockSpec index maps via scalar
-  prefetch.
+* tiles are sorted by (row-block, window); ``tile_rows`` and ``tile_wins``
+  name each tile's output block and x window.
 
-SpMV: for each tile, gather the 128-wide x window (VMEM-resident),
-``take_along_axis`` by lidx, FMA against vals, accumulate into the 8-row
-output block.  All compute is VPU-vectorized; HBM traffic ≈ tile data +
-one x window per tile.
+SpMV (``kernels/spmv.py``): gather each tile's x window by lidx, FMA
+against vals, sum into the 8-row output block.  HBM traffic ≈ tile data +
+one x window per tile.  The layout was built for a 128-lane window-gather
+unit; it is off the automatic path on the H100.
 """
 
 from __future__ import annotations
@@ -38,36 +32,6 @@ from .base import SparseFormat, array_field, register_format, static_field
 ROW_BLOCK = 8
 WINDOW = 128
 
-#: Max tiles whose (tile_rows, tile_wins) scalar-prefetch arrays fit in SMEM
-#: (~1 MB): 2 arrays × 4 B × 60k = 480 KB, leaving headroom.  Larger
-#: matrices run as several pallas_calls over row-block-aligned tile chunks.
-MAX_TILES_PER_CALL = 60_000
-
-
-def _chunk_bounds(tile_rows: np.ndarray, n_rb: int,
-                  max_tiles: int = MAX_TILES_PER_CALL):
-    """Split the tile stream into SMEM-sized chunks at row-block boundaries.
-
-    Returns ((tile_start, tile_end, rb_start, rb_end), ...) — each row block
-    lands in exactly one chunk, so per-chunk outputs concatenate.
-    """
-    t = int(tile_rows.shape[0])
-    if t <= max_tiles:
-        return ((0, t, 0, n_rb - 1),)
-    rb_first = np.searchsorted(tile_rows, np.arange(n_rb + 1))
-    rb_first[-1] = t
-    bounds = []
-    rb0 = 0
-    while rb0 < n_rb:
-        rb1 = rb0
-        while (rb1 + 1 < n_rb
-               and rb_first[rb1 + 2] - rb_first[rb0] <= max_tiles):
-            rb1 += 1
-        bounds.append((int(rb_first[rb0]), int(rb_first[rb1 + 1]), rb0, rb1))
-        rb0 = rb1 + 1
-    return tuple(bounds)
-
-
 @register_format
 @dataclasses.dataclass(frozen=True)
 class WELL(SparseFormat):
@@ -81,9 +45,7 @@ class WELL(SparseFormat):
     consecutively, so slot < count ⟺ stored.  Keeps explicitly-stored zeros
     distinguishable from padding on round-trip (the reference's ``get_mut``
     inserts and counts zero entries, src/sparsematrix.rs:112-114).  May be
-    None for ad-hoc constructions (falls back to ``val != 0``);
-    ``chunks``: static row-block-aligned tile ranges sized so each chunk's
-    scalar-prefetch arrays fit in SMEM (one pallas_call per chunk).
+    None for ad-hoc constructions (falls back to ``val != 0``).
     """
 
     _spmv_read_fields = ("vals", "lidx", "tile_rows", "tile_wins")  # row_cnt: round-trip only
@@ -94,7 +56,6 @@ class WELL(SparseFormat):
     tile_wins: jax.Array = array_field()
     row_cnt: jax.Array | None = array_field()
     shape: Tuple[int, int] = static_field()
-    chunks: Tuple[Tuple[int, int, int, int], ...] = static_field()
 
     @classmethod
     def from_csr(cls, csr, k_tile: int | None = None) -> "WELL":
@@ -186,8 +147,7 @@ class WELL(SparseFormat):
                                              t_wins[order3])
         return cls(vals=jnp.asarray(v_t), lidx=jnp.asarray(l_t),
                    tile_rows=jnp.asarray(t_rows), tile_wins=jnp.asarray(t_wins),
-                   row_cnt=jnp.asarray(c_t), shape=(n_rows, n_cols),
-                   chunks=_chunk_bounds(t_rows, n_rb))
+                   row_cnt=jnp.asarray(c_t), shape=(n_rows, n_cols))
 
     # -- canonical views ----------------------------------------------------
     def to_coo(self):

@@ -1,22 +1,11 @@
-"""Pallas TPU kernels — the tuned compute path.
+"""Per-format SpMV/SpMM formulations in plain ``jax.numpy``/``lax``.
 
-The generic ops in sparsemat_tpu.ops are pure XLA; these kernels replace
-them where XLA's lowering is weak on TPU (arbitrary gathers/scatters are
-serialized).  Each kernel has an XLA reference implementation used for
-interpret-mode tests and as a CPU fallback.
+``ops.matvec`` dispatches each frozen format to the one function here that
+serves it; XLA compiles them for whatever device runs the program.
 """
 
-from .spmm import bsr_spmm_pallas, bsr_spmm_xla, spmm_pallas
-from .spmv import (
-    slab_pack_spmv_pallas,
-    slab_pack_spmv_xla,
-    slab_spmv_pallas,
-    slab_spmv_xla,
-    spmv_pallas,
-    well_spmv_pallas,
-    well_spmv_xla,
-)
+from .spmm import bsr_spmm_xla
+from .spmv import slab_pack_spmv_xla, slab_spmv_xla, well_spmv_xla
 
-__all__ = ["spmv_pallas", "well_spmv_pallas", "well_spmv_xla",
-           "slab_spmv_pallas", "slab_spmv_xla",
-           "spmm_pallas", "bsr_spmm_pallas", "bsr_spmm_xla"]
+__all__ = ["well_spmv_xla", "slab_spmv_xla", "slab_pack_spmv_xla",
+           "bsr_spmm_xla"]

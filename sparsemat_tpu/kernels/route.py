@@ -1,27 +1,17 @@
-"""Pallas kernels for the RouteStream format (globally-scattered SpMV).
+"""RouteStream SpMV (see formats/route.py) in plain ``jax.numpy``/``lax``.
 
-See formats/route.py for the design.  Two kernels:
-
-* ``route_gather_pallas`` — per supertile: window-sliced x gathers →
-  products → static 3-phase permutation (take_along / transpose / …) →
-  dynamic-row adds into the VMEM-resident staging buffer.
-* ``route_reduce_pallas`` — per staging region: MXU triangular-matmul
-  prefix sum along lanes → two static take_along extractions → dynamic-row
-  adds into the VMEM-resident output windows.
-
-Both also run in ``interpret=True`` mode on CPU for the unit tests, and
-``route_spmv_xla`` replays the exact same table semantics with plain jnp
-ops as the correctness oracle / non-TPU fallback.
+``route_spmv_xla`` replays the freeze-time routing tables: window gathers
+and products in A-slot order, the three-phase static permutation
+(take_along / transpose / take_along) into staging rows, then a per-region
+segmented reduce (a triangular-matmul prefix sum and two extractions) into
+the output windows — ``lax.scan`` over supertiles and regions, so the
+compiled program stays O(1) in the matrix size.
 
 Replaces the reference's serial row loop (src/sparsematrix.rs:146-158)
-for the scatter regime; all primitives verified on a v5e (sublane-direction
-gather is NOT among them — Mosaic rejects it, hence the transpose-based
-3-phase routing).
+for the globally scattered regime.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +20,7 @@ import numpy as np
 from ..formats.route import LANE, REG_ROWS, SUP_ROWS, RouteStream
 from ..types import accum_dtype
 
-#: upper-triangular ones — prefix[l] = sum_{l' <= l} p[l'] via one MXU pass
+#: upper-triangular ones — prefix[l] = sum_{l' <= l} p[l'] as one matmul
 _TRI = np.triu(np.ones((LANE, LANE), np.float32))
 
 
@@ -41,10 +31,7 @@ def _x_windows(rs: RouteStream, x: jax.Array, adt):
 
 
 def route_spmv_xla(rs: RouteStream, x: jax.Array) -> jax.Array:
-    """Table-exact XLA replay (CPU fallback / correctness oracle for the
-    freeze-time routing): same gathers, same permutation semantics, same
-    prefix/extract reduce — with jnp ops and ``lax.scan`` over supertiles/
-    regions instead of Pallas (compile size O(1) in the matrix)."""
+    """y = A @ x by the freeze-time routing tables."""
     adt = accum_dtype(jnp.result_type(rs.a_vals.dtype, x.dtype))
     xw = _x_windows(rs, x, adt)
     n_sup = rs.n_sup
@@ -97,178 +84,3 @@ def route_spmv_xla(rs: RouteStream, x: jax.Array) -> jax.Array:
                         (stag3, rs.q1, rs.q2, rs.q3, rs.lpos, rs.ppos,
                          rs.pmask, rs.segmask, rs.wrow))
     return y[:n_ywin].reshape(-1)[: rs.shape[0]]
-
-
-def route_gather_pallas(rs: RouteStream, x: jax.Array, *,
-                        interpret: bool = False) -> jax.Array:
-    """Kernel 1: products + static routing into staging (returned).
-
-    Known headroom (r5 profile, scircuit): the per-row ``store_row``
-    RMW fori_loop costs ~16k dynamic (1,128) read-add-writes per SpMV —
-    the majority of the 472 µs wall.  A freeze-level re-layout that gives
-    each (supertile, split) an exclusive, consecutive 128-row staging
-    range would turn it into one static block store (and push the
-    accumulation into kernel 2's region reduce); left for a future round.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    adt = accum_dtype(jnp.result_type(rs.a_vals.dtype, x.dtype))
-    xw = _x_windows(rs, x, adt)
-    n_win = int(xw.shape[0])
-    n_sup = rs.n_sup
-    n_spl = rs.n_splits
-    n_stage = rs.n_regions * REG_ROWS + SUP_ROWS
-    vals = rs.a_vals.astype(adt)
-    m1 = rs.m1.astype(adt)
-
-    def kernel(win_ref, touch_ref, vals_ref, lidx_ref, p1_ref, m1_ref,
-               p2_ref, p3_ref, x_ref, o_ref, scratch, routed, xw8):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            o_ref[...] = jnp.zeros_like(o_ref)
-
-        # products into scratch, 8 A-rows per iteration: stack the 8 rows'
-        # x windows into an (8,128) tile, then ONE take_along gathers all
-        # 8 rows at once (Mosaic's dynamic gather needs 8-sublane tiles —
-        # (1,128) operands fail to lower; fori_loop keeps compile small)
-        def prod_rows(m8, carry):
-            base = m8 * 8
-            for k in range(8):
-                w = win_ref[i * SUP_ROWS + base + k]
-                xw8[pl.ds(k, 1), :] = x_ref[pl.ds(w, 1), :]
-            li = lidx_ref[0, pl.ds(base, 8), :]
-            g = jnp.take_along_axis(xw8[...], li, axis=1)
-            scratch[pl.ds(base, 8), :] = vals_ref[0, pl.ds(base, 8), :] * g
-            return carry
-
-        jax.lax.fori_loop(0, SUP_ROWS // 8, prod_rows, 0)
-
-        blk = scratch[...]
-        for s in range(n_spl):
-            b1 = jnp.take_along_axis(blk, p1_ref[0, s], axis=1)
-            b1 = b1 * m1_ref[0, s]
-            b2 = b1.T
-            b3 = jnp.take_along_axis(b2, p2_ref[0, s], axis=1)
-            b4 = b3.T
-            routed[...] = jnp.take_along_axis(b4, p3_ref[0, s], axis=1)
-
-            def store_row(j, carry):
-                row = touch_ref[(i * n_spl + s) * SUP_ROWS + j]
-                o_ref[pl.ds(row, 1), :] = (o_ref[pl.ds(row, 1), :]
-                                           + routed[pl.ds(j, 1), :])
-                return carry
-
-            jax.lax.fori_loop(0, SUP_ROWS, store_row, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_sup,),
-        in_specs=[
-            pl.BlockSpec((1, SUP_ROWS, LANE), lambda i, w, t: (i, 0, 0)),
-            pl.BlockSpec((1, SUP_ROWS, LANE), lambda i, w, t: (i, 0, 0)),
-            pl.BlockSpec((1, n_spl, LANE, LANE), lambda i, w, t: (i, 0, 0, 0)),
-            pl.BlockSpec((1, n_spl, LANE, LANE), lambda i, w, t: (i, 0, 0, 0)),
-            pl.BlockSpec((1, n_spl, LANE, LANE), lambda i, w, t: (i, 0, 0, 0)),
-            pl.BlockSpec((1, n_spl, LANE, LANE), lambda i, w, t: (i, 0, 0, 0)),
-            pl.BlockSpec((n_win, LANE), lambda i, w, t: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((n_stage, LANE), lambda i, w, t: (0, 0)),
-        scratch_shapes=[pltpu.VMEM((SUP_ROWS, LANE), adt),
-                        pltpu.VMEM((SUP_ROWS, LANE), adt),
-                        pltpu.VMEM((8, LANE), adt)],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_stage, LANE), adt),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=4 * n_sup * n_spl * SUP_ROWS * LANE,
-            bytes_accessed=int(vals.nbytes + rs.a_lidx.nbytes
-                               + 4 * rs.p1.nbytes + n_win * LANE * 4
-                               + n_stage * LANE * 4),
-            transcendentals=0),
-    )(rs.a_win, rs.touch.reshape(-1), vals.reshape(n_sup, SUP_ROWS, LANE),
-      rs.a_lidx.reshape(n_sup, SUP_ROWS, LANE), rs.p1, m1, rs.p2, rs.p3, xw)
-
-
-def route_reduce_pallas(rs: RouteStream, staging: jax.Array, *,
-                        interpret: bool = False) -> jax.Array:
-    """Kernel 2: per-region segmented reduce of staging into y."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    adt = staging.dtype
-    n_reg = rs.n_regions
-    n_ywin = rs.y_windows()
-    pmask = rs.pmask.astype(adt)
-    segmask = rs.segmask.astype(adt)
-    tri = jnp.asarray(_TRI, adt)
-
-    def kernel(wrow_ref, stage_ref, q1_ref, q2_ref, q3_ref, lpos_ref,
-               ppos_ref, pm_ref, sm_ref, tri_ref, o_ref, segbuf):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            o_ref[...] = jnp.zeros_like(o_ref)
-
-        # arrival → reduce layout (3-phase static permutation; dummy slots
-        # carry zeros, no mask needed)
-        b1 = jnp.take_along_axis(stage_ref[...], q1_ref[0], axis=1)
-        b3 = jnp.take_along_axis(b1.T, q2_ref[0], axis=1)
-        blk = jnp.take_along_axis(b3.T, q3_ref[0], axis=1)
-        prefix = jnp.dot(blk, tri_ref[...], preferred_element_type=adt,
-                         precision=jax.lax.Precision.HIGHEST)
-        e1 = jnp.take_along_axis(prefix, lpos_ref[0], axis=1)
-        e0 = jnp.take_along_axis(prefix, ppos_ref[0], axis=1)
-        segbuf[...] = (e1 - e0 * pm_ref[0]) * sm_ref[0]
-
-        def store_row(s, carry):
-            w = wrow_ref[i * REG_ROWS + s]
-            o_ref[pl.ds(w, 1), :] = (o_ref[pl.ds(w, 1), :]
-                                     + segbuf[pl.ds(s, 1), :])
-            return carry
-
-        jax.lax.fori_loop(0, REG_ROWS, store_row, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_reg,),
-        in_specs=[
-            pl.BlockSpec((REG_ROWS, LANE), lambda i, w: (i, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((1, REG_ROWS, LANE), lambda i, w: (i, 0, 0)),
-            pl.BlockSpec((LANE, LANE), lambda i, w: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((n_ywin + 1, LANE), lambda i, w: (0, 0)),
-        scratch_shapes=[pltpu.VMEM((REG_ROWS, LANE), adt)],
-    )
-    y = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_ywin + 1, LANE), adt),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_reg * REG_ROWS * LANE * LANE,
-            bytes_accessed=int(staging.nbytes + 3 * rs.q1.nbytes
-                               + 2 * rs.lpos.nbytes + 2 * rs.pmask.nbytes
-                               + (n_ywin + 1) * LANE * 4),
-            transcendentals=0),
-    )(rs.wrow.reshape(-1), staging[: n_reg * REG_ROWS], rs.q1, rs.q2,
-      rs.q3, rs.lpos, rs.ppos, pmask, segmask, tri)
-    return y[:n_ywin].reshape(-1)[: rs.shape[0]]
-
-
-def route_spmv_pallas(rs: RouteStream, x: jax.Array, *,
-                      interpret: bool = False) -> jax.Array:
-    staging = route_gather_pallas(rs, x, interpret=interpret)
-    return route_reduce_pallas(rs, staging, interpret=interpret)

@@ -1,16 +1,11 @@
-"""General-matrix SpMV kernels over the WELL (windowed ELL) format.
+"""XLA SpMV formulations of the windowed layouts (WELL, SlabELL, SlabPack,
+SlabStream).
 
-Design (see formats/well.py): the matrix is tiles of (8 rows × ≤K entries)
-confined to 128-wide column windows.  The kernel walks tiles (sorted by row
-block); for each tile it loads the 128-lane x window, gathers by
-column-within-window with ``take_along_axis`` (an in-register Mosaic
-dynamic gather — the ONLY vectorized gather form TPU supports), FMAs
-against the tile values, and accumulates into the 8-row output block.
-Output blocks are revisited consecutively, so partial sums stay in VMEM
-until the row block changes (standard Pallas revisiting pattern).
-
-Replaces the serial row loop of the reference (src/sparsematrix.rs:146-158)
-for matrices with no exploitable diagonal/band structure.
+Each is a gather of x by (window, lane) index, an FMA against the stored
+values and a sum or scatter-add into the output rows; XLA fuses the
+gather into the product and emits one scatter-add for the row blocks.
+They replace the serial row loop of the reference
+(src/sparsematrix.rs:146-158) for these formats.
 """
 
 from __future__ import annotations
@@ -19,6 +14,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..formats.slab import WINDOW as SLAB_WINDOW
+from ..formats.slab import SlabELL, SlabPack, SlabStream
 from ..formats.well import ROW_BLOCK, WELL, WINDOW
 from ..types import accum_dtype
 
@@ -31,7 +28,7 @@ def _pad_x_windows(well: WELL, x: jax.Array):
 
 
 def well_spmv_xla(well: WELL, x: jax.Array) -> jax.Array:
-    """XLA reference implementation (CPU fallback / correctness oracle)."""
+    """SpMV on the format's own arrays (its only device path)."""
     n_rows = well.shape[0]
     xw, _ = _pad_x_windows(well, x)
     adt = accum_dtype(jnp.result_type(well.vals.dtype, x.dtype))
@@ -47,105 +44,10 @@ def well_spmv_xla(well: WELL, x: jax.Array) -> jax.Array:
     return y.reshape(-1)[:n_rows]
 
 
-def well_spmv_pallas(well: WELL, x: jax.Array, *, interpret: bool = False) -> jax.Array:
-    """Pallas TPU kernel.
-
-    Large matrices run as several pallas_calls over the freeze-time tile
-    ``chunks`` (row-block aligned): each call's scalar-prefetch arrays fit in
-    SMEM and the per-chunk outputs concatenate."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_rows = well.shape[0]
-    n_rb = -(-n_rows // ROW_BLOCK)
-    adt = accum_dtype(jnp.result_type(well.vals.dtype, x.dtype))
-    if well.n_tiles == 0:
-        return jnp.zeros((n_rows,), adt)
-    xw, _ = _pad_x_windows(well, x.astype(adt))
-    k = well.k_tile
-    vals_all = well.vals.astype(adt)
-
-    def kernel(rb_ref, w_ref, vals_ref, lidx_ref, x_ref, o_ref):
-        i = pl.program_id(0)
-        prev = rb_ref[jnp.maximum(i - 1, 0)]
-        first = jnp.logical_or(i == 0, rb_ref[i] != prev)
-
-        @pl.when(first)
-        def _():
-            o_ref[...] = jnp.zeros_like(o_ref)
-
-        xb = jnp.broadcast_to(x_ref[0], (ROW_BLOCK, WINDOW))   # (8, 128)
-        # Mosaic's dynamic gather requires idx.shape == operand.shape, so pad
-        # the K-wide tile to 128 lanes in-register (padding lanes carry
-        # val=0, killing their gathered garbage); storage stays K-wide.
-        idx = lidx_ref[0]
-        v = vals_ref[0]
-        if k < WINDOW:
-            idx = jnp.pad(idx, ((0, 0), (0, WINDOW - k)))
-            v = jnp.pad(v, ((0, 0), (0, WINDOW - k)))
-        g = jnp.take_along_axis(xb, idx, axis=1)               # (8, 128)
-        o_ref[0, 0] += jnp.sum(v * g, axis=1)
-
-    outs = []
-    for (ts, te, rb0, rb1) in well.chunks:
-        nt = te - ts
-        nrb = rb1 - rb0 + 1
-        rows_rel = well.tile_rows[ts:te] - rb0
-        # x windows carried as (n_win, 1, 128) and output as (nrb, 1, 8) so
-        # per-step blocks (1,1,128)/(1,1,8) satisfy Mosaic's trailing-dims rule
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nt,),
-            in_specs=[
-                pl.BlockSpec((1, ROW_BLOCK, k), lambda i, rb, w: (i, 0, 0)),
-                pl.BlockSpec((1, ROW_BLOCK, k), lambda i, rb, w: (i, 0, 0)),
-                pl.BlockSpec((1, 1, WINDOW), lambda i, rb, w: (w[i], 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, 1, ROW_BLOCK),
-                                   lambda i, rb, w: (rb[i], 0, 0)),
-        )
-        y = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((nrb, 1, ROW_BLOCK), adt),
-            interpret=interpret,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nt * ROW_BLOCK * k,
-                bytes_accessed=int(vals_all.nbytes // max(well.n_tiles, 1) * nt
-                                   + well.lidx.nbytes // max(well.n_tiles, 1) * nt
-                                   + nt * WINDOW * 4 + nrb * ROW_BLOCK * 4),
-                transcendentals=0),
-        )(rows_rel, well.tile_wins[ts:te], vals_all[ts:te], well.lidx[ts:te],
-          xw[:, None, :])
-        outs.append(y.reshape(-1))
-    y = outs[0] if len(outs) == 1 else jnp.concatenate(outs)
-    return y[:n_rows]
-
-
-def spmv_pallas(mat, x: jax.Array) -> jax.Array:
-    """Dispatch entry for ops.spmv(method='pallas')."""
-    well = mat if isinstance(mat, WELL) else WELL.from_csr(mat.to_csr())
-    return well_spmv_pallas(well, x)
-
-
 # --- SlabELL: window-bucketed slabs (see formats/slab.py) --------------------
 
-from ..formats.slab import SUBLANE, SlabELL  # noqa: E402
-from ..formats.slab import WINDOW as SLAB_WINDOW  # noqa: E402
-
-#: grid chunk bound: the win_lo scalar-prefetch array must fit in SMEM
-_SLAB_MAX_BLOCKS_PER_CALL = 60_000
-
-
-def _slab_x_windows(sl: SlabELL, x: jax.Array):
-    """Pad x so ``win_lo + w`` never overruns, reshaped to (n_win, 128)."""
-    n_win = sl.x_windows()
-    xp = jnp.pad(x, (0, n_win * SLAB_WINDOW - x.shape[0]))
-    return xp.reshape(n_win, SLAB_WINDOW)
-
-
 def slab_spmv_xla(sl: SlabELL, x: jax.Array) -> jax.Array:
-    """XLA reference implementation (CPU fallback / correctness oracle)."""
+    """SpMV on the format's own arrays (its only device path)."""
     n_rows = sl.shape[0]
     adt = accum_dtype(jnp.result_type(sl.vals.dtype, x.dtype))
     w_of = jnp.asarray(sl._window_of_cpos())
@@ -156,107 +58,7 @@ def slab_spmv_xla(sl: SlabELL, x: jax.Array) -> jax.Array:
     return y.reshape(-1)[:n_rows]
 
 
-#: target HBM bytes per grid step — per-step overhead is ~300-500 ns, so
-#: steps should move ≥ ~200 KB (CLAUDE.md); small-C matrices batch several
-#: row blocks per step to reach it
-_SLAB_STEP_BYTES = 1 << 18
-
-
-def slab_spmv_pallas(sl: SlabELL, x: jax.Array, *,
-                     interpret: bool = False,
-                     blocks_per_step: int | None = None) -> jax.Array:
-    """Pallas TPU kernel: one grid step per group of RB-row blocks.
-
-    The operand vector lives whole in VMEM as (n_win, 128) windows (full-
-    array BlockSpec — loaded once, revisited every step).  Per block the
-    kernel loops the static window ``buckets``: one dynamic sublane
-    slice pulls the bucket's x window (``win_lo[i] + w``), one 128-lane
-    ``take_along_axis`` gathers per sublane group, and the FMA accumulates
-    into an (8, 128) register tile per lane chunk — no window masking, no
-    manual DMA.  Tiles are transposed (C, RB) so every block DMA is
-    lane-aligned.  Zero-height buckets (possible in SlabPack classes) are
-    skipped statically.  When C×RB is small, ``blocks_per_step`` > 1 blocks
-    share a grid step so each step still moves ≥ ~256 KB."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_rows = sl.shape[0]
-    rb = sl.row_block
-    c = sl.c_total
-    n_rb = sl.n_row_blocks
-    buckets = sl.buckets
-    adt = accum_dtype(jnp.result_type(sl.vals.dtype, x.dtype))
-    xw = _slab_x_windows(sl, x.astype(adt))      # (n_win, 128)
-    n_win = int(xw.shape[0])
-    vals_all = sl.vals.astype(adt)
-    nlc = rb // SLAB_WINDOW
-    if blocks_per_step is None:
-        blocks_per_step = int(np.clip(
-            _SLAB_STEP_BYTES // max(c * rb * 8, 1), 1, 16))
-    b2 = min(blocks_per_step, n_rb)
-
-    def kernel(wl_ref, vals_ref, lidx_ref, x_ref, o_ref):
-        i = pl.program_id(0)
-        for b in range(b2):
-            wlo = wl_ref[i * b2 + b]
-            for j in range(nlc):
-                acc = jnp.zeros((SUBLANE, SLAB_WINDOW), adt)
-                for w, (o, h) in enumerate(buckets):
-                    if h == 0:
-                        continue
-                    xrow = x_ref[pl.ds(wlo + w, 1), :]        # (1, 128)
-                    v = vals_ref[b, o:o + h, j * 128:(j + 1) * 128]
-                    li = lidx_ref[b, o:o + h, j * 128:(j + 1) * 128]
-                    xb = jnp.broadcast_to(xrow, (h, SLAB_WINDOW))
-                    g = jnp.take_along_axis(xb, li, axis=1)
-                    prod = v * g                              # (h, 128)
-                    acc = acc + prod.reshape(
-                        h // SUBLANE, SUBLANE, SLAB_WINDOW).sum(axis=0)
-                # per-lane-chunk store (1-D concat unsupported in Mosaic)
-                o_ref[b, 0, j * 128:(j + 1) * 128] = jnp.sum(acc, axis=0)
-
-    outs = []
-    for cs in range(0, n_rb, _SLAB_MAX_BLOCKS_PER_CALL):
-        ce = min(cs + _SLAB_MAX_BLOCKS_PER_CALL, n_rb)
-        nb = ce - cs
-        nb_pad = -(-nb // b2) * b2
-        wl = sl.win_lo[cs:ce]
-        va = vals_all[cs:ce]
-        li = sl.lidx[cs:ce]
-        if nb_pad != nb:
-            wl = jnp.pad(wl, (0, nb_pad - nb))
-            va = jnp.pad(va, ((0, nb_pad - nb), (0, 0), (0, 0)))
-            li = jnp.pad(li, ((0, nb_pad - nb), (0, 0), (0, 0)))
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nb_pad // b2,),
-            in_specs=[
-                pl.BlockSpec((b2, c, rb), lambda i, wl: (i, 0, 0)),
-                pl.BlockSpec((b2, c, rb), lambda i, wl: (i, 0, 0)),
-                pl.BlockSpec((n_win, SLAB_WINDOW), lambda i, wl: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((b2, 1, rb), lambda i, wl: (i, 0, 0)),
-        )
-        y = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((nb_pad, 1, rb), adt),
-            interpret=interpret,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nb_pad * c * rb,
-                bytes_accessed=int(nb_pad * c * rb * 8
-                                   + n_win * SLAB_WINDOW * 4 + nb_pad * rb * 4),
-                transcendentals=0),
-        )(wl, va, li, xw)
-        outs.append(y[:nb].reshape(-1))
-    y = outs[0] if len(outs) == 1 else jnp.concatenate(outs)
-    return y[:n_rows]
-
-
 # --- SlabPack: per-block-class buckets (see formats/slab.py) -----------------
-
-from ..formats.slab import SlabPack  # noqa: E402
-
 
 def _slab_pack_combine(pack: SlabPack, part_ys) -> jax.Array:
     """Recombine per-part block rows by the static block permutation."""
@@ -268,20 +70,8 @@ def _slab_pack_combine(pack: SlabPack, part_ys) -> jax.Array:
     return Y[jnp.asarray(inv)].reshape(-1)[: pack.shape[0]]
 
 
-def slab_pack_spmv_pallas(pack: SlabPack, x: jax.Array, *,
-                          interpret: bool = False) -> jax.Array:
-    """One ``slab_spmv_pallas`` per homogeneous class, then a block-granular
-    static permutation gather back to matrix row order; the overflow pack
-    (deep-occupancy spill entries) adds its contribution on top."""
-    ys = [slab_spmv_pallas(p, x, interpret=interpret) for p in pack.parts]
-    y = _slab_pack_combine(pack, ys)
-    if pack.overflow is not None:
-        y = y + slab_pack_spmv_pallas(pack.overflow, x, interpret=interpret)
-    return y
-
-
 def slab_pack_spmv_xla(pack: SlabPack, x: jax.Array) -> jax.Array:
-    """XLA reference implementation (CPU fallback / correctness oracle)."""
+    """SpMV on the format's own arrays (its only device path)."""
     ys = [slab_spmv_xla(p, x) for p in pack.parts]
     y = _slab_pack_combine(pack, ys)
     if pack.overflow is not None:
@@ -291,17 +81,9 @@ def slab_pack_spmv_xla(pack: SlabPack, x: jax.Array) -> jax.Array:
 
 # --- SlabStream: flat chunk stream, per-(block, window)-exact heights --------
 
-from ..formats.slab import SlabStream  # noqa: E402
-
-#: HBM bytes each grid step should move (per-step overhead ~300-500 ns)
-_STREAM_STEP_BYTES = 1 << 18
-#: scalar-prefetch SMEM bound: win_id/blk_id per chunk
-_STREAM_MAX_CHUNKS_PER_CALL = 49_152
-
-
 def slab_stream_spmv_xla(st: SlabStream, x: jax.Array) -> jax.Array:
-    """XLA reference implementation (CPU fallback / correctness oracle) —
-    a straightforward per-slot gather, clarity over speed."""
+    """SpMV on the format's own arrays: a per-slot gather, then one
+    scatter-add of the chunk sums into their row blocks."""
     n_rows = st.shape[0]
     rb = st.row_block
     adt = accum_dtype(jnp.result_type(st.vals.dtype, x.dtype))
@@ -315,96 +97,3 @@ def slab_stream_spmv_xla(st: SlabStream, x: jax.Array) -> jax.Array:
     y = jnp.zeros((n_rb + 1, rb), adt)
     y = y.at[jnp.minimum(st.blk_id, n_rb)].add(contrib)
     return y[:n_rb].reshape(-1)[:n_rows]
-
-
-def slab_stream_spmv_pallas(st: SlabStream, x: jax.Array, *,
-                            interpret: bool = False) -> jax.Array:
-    """One Pallas kernel over the chunk stream.
-
-    x lives whole in VMEM as (n_win, 128); the output lives whole in VMEM
-    as (n_rb+1, RB) and is accumulated by dynamic-sublane read-modify-write
-    (sequential grid ⇒ race-free; the +1 row swallows padding chunks).
-    Chunk counts above the SMEM prefetch bound split into several calls
-    whose outputs add."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_rows = st.shape[0]
-    rb = st.row_block
-    n_rb = st.n_row_blocks
-    adt = accum_dtype(jnp.result_type(st.vals.dtype, x.dtype))
-    n_win = st.x_windows()
-    xw = jnp.pad(x.astype(adt), (0, n_win * SLAB_WINDOW - x.shape[0])
-                 ).reshape(n_win, SLAB_WINDOW)
-    vals_all = st.vals.astype(adt)
-    nlc = rb // SLAB_WINDOW
-    g8 = max(_STREAM_STEP_BYTES // (SUBLANE * rb * 8), 1)
-
-    def kernel(win_ref, blk_ref, vals_ref, lidx_ref, x_ref, o_ref):
-        # o_ref is ((n_rb+1)*nlc, 128): every dynamic access is a FULL
-        # lane-width (1, 128) row — Mosaic rejects dynamic sublane loads
-        # combined with partial lane slices ("unaligned indices")
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            o_ref[...] = jnp.zeros_like(o_ref)
-
-        for g in range(g8):
-            w = win_ref[i * g8 + g]
-            b = blk_ref[i * g8 + g]
-            xrow = x_ref[pl.ds(w, 1), :]                  # (1, 128)
-            xb = jnp.broadcast_to(xrow, (SUBLANE, SLAB_WINDOW))
-            for j in range(nlc):
-                li = lidx_ref[g, :, j * 128:(j + 1) * 128]
-                v = vals_ref[g, :, j * 128:(j + 1) * 128]
-                gsel = jnp.take_along_axis(xb, li, axis=1)
-                contrib = jnp.sum(v * gsel, axis=0, keepdims=True)  # (1, 128)
-                k = b * nlc + j
-                o_ref[pl.ds(k, 1), :] = o_ref[pl.ds(k, 1), :] + contrib
-
-    n = st.n_chunks
-    outs = []
-    for cs in range(0, n, _STREAM_MAX_CHUNKS_PER_CALL):
-        ce = min(cs + _STREAM_MAX_CHUNKS_PER_CALL, n)
-        nc = ce - cs
-        nc_pad = -(-nc // g8) * g8
-        wi = st.win_id[cs:ce]
-        bi = st.blk_id[cs:ce]
-        va = vals_all[cs:ce]
-        li = st.lidx[cs:ce]
-        if nc_pad != nc:
-            wi = jnp.pad(wi, (0, nc_pad - nc))
-            bi = jnp.pad(bi, (0, nc_pad - nc),
-                         constant_values=n_rb)            # → the +1 slop row
-            va = jnp.pad(va, ((0, nc_pad - nc), (0, 0), (0, 0)))
-            li = jnp.pad(li, ((0, nc_pad - nc), (0, 0), (0, 0)))
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nc_pad // g8,),
-            in_specs=[
-                pl.BlockSpec((g8, SUBLANE, rb), lambda i, wr, br: (i, 0, 0)),
-                pl.BlockSpec((g8, SUBLANE, rb), lambda i, wr, br: (i, 0, 0)),
-                pl.BlockSpec((n_win, SLAB_WINDOW), lambda i, wr, br: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec(((n_rb + 1) * nlc, SLAB_WINDOW),
-                                   lambda i, wr, br: (0, 0)),
-        )
-        y = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(((n_rb + 1) * nlc, SLAB_WINDOW),
-                                           adt),
-            interpret=interpret,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nc_pad * SUBLANE * rb,
-                bytes_accessed=int(nc_pad * SUBLANE * rb * 8
-                                   + n_win * SLAB_WINDOW * 4
-                                   + (n_rb + 1) * rb * 4),
-                transcendentals=0),
-        )(wi, bi, va, li, xw)
-        outs.append(y)
-    y = outs[0]
-    for extra in outs[1:]:
-        y = y + extra
-    return y[: n_rb * nlc].reshape(-1)[:n_rows]

@@ -1,22 +1,10 @@
-"""StripELL SpMV kernel — strip-packed window gather (see formats/strip.py).
+"""StripELL SpMV (see formats/strip.py) in plain ``jax.numpy``.
 
-Per grid step (one group of ``g4`` consecutive 128-row blocks of one class
-part, sharing a single xᵀ tile DMA), per block:
-
-1. **x assembly** — the step's xᵀ tile (128 lanes × 128 windows, DMA'd by
-   BlockSpec off the scalar-prefetched ``wtile``) is turned into per-strip
-   x rows by ONE ``take_along_axis`` over lanes + ONE (128,128) transpose
-   per 128 strips: ``xb[s, r] = x[window(s)·128 + r]``.  This is the only
-   vectorized cross-window selection the VPU supports (sublane gathers do
-   not exist — CLAUDE.md); it costs 2 vector ops per 128 strips instead of
-   the 128 dynamic sublane slices a naive assembly would need.
-2. **gather-FMA sweep** — per 8-strip group: one in-register
-   ``take_along_axis`` of the assembled (8,128) xb against ``lidx``, one
-   FMA into the accumulator; sum over sublanes at the end (identical op
-   density to the SlabPack kernel that measured 106% of its layout bound).
-
-Replaces the reference's serial row loop (src/sparsematrix.rs:146-158) in
-the bounded-span scattered regime at ~½ of SlabPack's memory traffic.
+Each class part is a (blocks, strips, 128) rectangle of values and
+window-relative column ids; the SpMV gathers x at the absolute columns,
+sums over strips, and puts the part's 128-row block results back in matrix
+row order by one static permutation.  Replaces the reference's serial row
+loop (src/sparsematrix.rs:146-158) in the bounded-span scattered regime.
 """
 
 from __future__ import annotations
@@ -25,104 +13,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..formats.strip import RB, SUBLANE, WINDOW, StripELL, StripPart
-from ..formats.strip import build_xt_tiles
+from ..formats.strip import WINDOW, StripELL
 from ..types import accum_dtype
-
-#: per-call SMEM bound for the wtile scalar-prefetch array
-_MAX_BLOCKS_PER_CALL = 60_000
-
-
-#: sweep gather chunk: packed-index word rows per ``take_along`` batch —
-#: measured on-chip: 64 ≥ 32 > 16 ≫ full-c_total (per-gather issue
-#: overhead ~6-8 ns amortizes; full-width spills registers)
-_SWEEP_CHUNK = 64
-
-
-def strip_part_spmv_pallas(part: StripPart, xt: jax.Array, *,
-                           interpret: bool = False) -> jax.Array:
-    """(nb, 128) block results for one class part (xt from build_xt_tiles).
-
-    One grid step per g4-block group.  Measured r5 on the fem surrogate: the kernel
-    is GATHER-THROUGHPUT-bound (~8 ns per native (8,128) take_along unit —
-    a variant with gathers removed streams the same arrays at 807 GB/s vs
-    ~300 effective with them), so the tuning levers are op-count ones:
-    32-strip sweep chunks and nothing else; multi-block grid steps and
-    register-fused assembly were tried and measured neutral-to-worse."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nb, c_total, rb = part.vals.shape
-    cg = part.wrel.shape[1]
-    g4 = part.g4
-    pack = part.lidx_pack
-    cp_total = part.lidx.shape[1]
-    adt = accum_dtype(jnp.result_type(part.vals.dtype, xt.dtype))
-    vals = part.vals.astype(adt)
-    xt = xt.astype(adt)
-
-    def kernel(wt_ref, vals_ref, lidx_ref, wrel_ref, xt_ref, o_ref, xb):
-        for k in range(g4):
-            # 1. assembly: xb[s, r] = x[(tile_base + wrel[s]) * 128 + r] —
-            # ONE (128,128) lane-gather + transpose per 128 strips (the
-            # only vectorized cross-window selection TPU supports); the
-            # whole group shares this step's x^T tile
-            for g in range(cg):
-                wr = wrel_ref[k, g, :]
-                idx = jnp.broadcast_to(wr[None, :], (WINDOW, WINDOW))
-                rows = jnp.take_along_axis(xt_ref[0], idx, axis=1)
-                xb[g * WINDOW:(g + 1) * WINDOW, :] = rows.T     # (s, lane)
-            # 2. strip sweep (``lidx_pack`` strips per index word: one
-            # shift+mask pair unpacks each byte lane — the packed word row
-            # o serves strips {j·cp + o})
-            acc = jnp.zeros((SUBLANE, RB), adt)
-            cp = c_total // pack
-            for o in range(0, cp, _SWEEP_CHUNK):
-                h = min(_SWEEP_CHUNK, cp - o)
-                w = lidx_ref[k, o:o + h, :]
-                for j in range(pack):
-                    lij = (w >> (8 * j)) & 0xFF if pack > 1 else w
-                    s0 = j * cp + o
-                    gg = jnp.take_along_axis(xb[s0:s0 + h, :], lij, axis=1)
-                    prod = vals_ref[k, s0:s0 + h, :] * gg
-                    acc = acc + prod.reshape(h // SUBLANE, SUBLANE,
-                                             RB).sum(axis=0)
-            o_ref[k, 0, :] = jnp.sum(acc, axis=0)
-
-    outs = []
-    cap = max((_MAX_BLOCKS_PER_CALL // g4) * g4, g4)
-    for cs in range(0, nb, cap):
-        ce = min(cs + cap, nb)
-        nbc = ce - cs
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nbc // g4,),
-            in_specs=[
-                pl.BlockSpec((g4, c_total, rb), lambda i, wt: (i, 0, 0)),
-                pl.BlockSpec((g4, cp_total, rb), lambda i, wt: (i, 0, 0)),
-                pl.BlockSpec((g4, cg, WINDOW), lambda i, wt: (i, 0, 0)),
-                # consecutive groups usually share a tile → Pallas skips
-                # the re-DMA when the index map value repeats
-                pl.BlockSpec((1, WINDOW, WINDOW), lambda i, wt: (wt[i], 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((g4, 1, rb), lambda i, wt: (i, 0, 0)),
-            scratch_shapes=[pltpu.VMEM((cg * WINDOW, RB), adt)],
-        )
-        y = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((nbc, 1, rb), adt),
-            interpret=interpret,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nbc * c_total * rb,
-                bytes_accessed=int(nbc * (c_total + cp_total) * rb * 4
-                                   + nbc * cg * WINDOW * 4
-                                   + nbc * rb * 4),
-                transcendentals=0),
-        )(part.wtile[cs // g4:ce // g4], vals[cs:ce], part.lidx[cs:ce],
-          part.wrel[cs:ce], xt)
-        outs.append(y.reshape(nbc, rb))
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs)
 
 
 def _combine(st: StripELL, part_ys) -> jax.Array:
@@ -134,17 +26,9 @@ def _combine(st: StripELL, part_ys) -> jax.Array:
     return Y[jnp.asarray(inv)].reshape(-1)[: st.shape[0]]
 
 
-def strip_spmv_pallas(st: StripELL, x: jax.Array, *,
-                      interpret: bool = False) -> jax.Array:
-    xt = build_xt_tiles(x, st.shape[1])
-    return _combine(st, [strip_part_spmv_pallas(p, xt, interpret=interpret)
-                         for p in st.parts])
-
-
 def strip_spmv_xla(st: StripELL, x: jax.Array) -> jax.Array:
-    """XLA reference implementation (CPU fallback / correctness oracle)."""
+    """y = A @ x over the strip parts."""
     adt = accum_dtype(jnp.result_type(st.dtype, x.dtype))
-    n_cols = st.shape[1]
     ys = []
     for p in st.parts:
         cols = (p.abs_windows()[:, :, None] * WINDOW

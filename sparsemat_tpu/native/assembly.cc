@@ -1,6 +1,6 @@
 // Native assembly runtime: incremental sparse-matrix builder.
 //
-// TPU-native replacement for the reference's assembly format
+// Replacement for the reference's assembly format
 // (reference: src/sparsemat_indexlist.rs + src/indexlist.rs): the reference
 // finds an entry by walking a linked-list-in-arrays chain per row —
 // O(nnz_row) per insert (indexlist.rs:75-78).  Here an open-addressing hash

@@ -9,7 +9,7 @@ decomposition (sparsemat_par.rs:20-35) maps onto a ``jax.sharding.Mesh``:
 * matrices are stored with a leading block axis sharded over the mesh
   (``DistDIA`` / ``DistCSR`` / ``DistELL``);
 * SpMV runs under ``shard_map`` — banded matrices exchange halo edges with
-  neighbor chips via ``lax.ppermute`` (ICI neighbor traffic only), general
+  neighbor chips via ``lax.ppermute`` (neighbor traffic only), general
   matrices ``all_gather`` the operand vector;
 * solver dot products reduce with ``lax.psum`` — the completed version of
   the mpsc gather the reference never wrote;

@@ -7,7 +7,7 @@ commented-out thread sketch (sparsemat_par.rs:37-68) is realized with
 ``shard_map`` + collectives:
 
 * ``DistDIA`` — banded matrices; the operand vector exchanges only h-wide
-  *halo edges* with neighbor chips (``lax.ppermute``), so ICI traffic per
+  *halo edges* with neighbor chips (``lax.ppermute``), so interconnect traffic per
   step is O(halo), not O(n).  This is the distributed pattern for stencil
   operators (BASELINE config 5).
 * ``DistCSR`` / ``DistELL`` — general matrices; the operand is
@@ -521,7 +521,7 @@ class DistSlab:
     freeze; ``win_lo`` is pre-shifted into *local extended-x window*
     coordinates so the kernel needs no device-id arithmetic.  SpMV
     exchanges ``halo_windows`` 128-column window edges with the two
-    neighbor chips (``lax.ppermute``) — ICI traffic per step is
+    neighbor chips (``lax.ppermute``) — interconnect traffic per step is
     O(halo), not O(n), the scattered-matrix analogue of DistDIA's
     banded halo exchange."""
 
@@ -576,11 +576,14 @@ def distribute_slab(csr, mesh: Mesh, axis: str = ROWS_AXIS,
             [vals, np.zeros((pad_blocks,) + vals.shape[1:], vals.dtype)])
         lidx = np.concatenate(
             [lidx, np.zeros((pad_blocks,) + lidx.shape[1:], lidx.dtype)])
-        wlo = np.concatenate([wlo, np.zeros(pad_blocks, wlo.dtype)])
     nrb_l = r // rb
     w_l = r // WINDOW
     s = sl.slab_windows
     dev = np.arange(nrb_total) // nrb_l
+    if pad_blocks:
+        # all-zero tail blocks read their own device's first window, so
+        # they add no halo
+        wlo = np.concatenate([wlo, dev[sl.n_row_blocks:] * w_l])
     # halo: how far any block's slab reaches outside its device's x shard
     h = int(max(0,
                 (dev * w_l - wlo).max(initial=0),
@@ -605,7 +608,7 @@ def dist_slab_spmv(mat: DistSlab, x: jax.Array, mesh: Mesh) -> jax.Array:
     by padding slots (val 0), so no boundary masking is needed — the same
     argument as DistDIA."""
     from ..formats.slab import WINDOW, SlabELL
-    from ..kernels.spmv import slab_spmv_pallas, slab_spmv_xla
+    from ..kernels.spmv import slab_spmv_xla
 
     h = mat.halo_windows
     w_l = mat.local_windows
@@ -617,7 +620,6 @@ def dist_slab_spmv(mat: DistSlab, x: jax.Array, mesh: Mesh) -> jax.Array:
         raise ValueError(
             f"halo ({h} windows) exceeds the local shard ({w_l} windows) — "
             f"use DistELL (all-gather) for this span/mesh combination")
-    use_pallas = jax.default_backend() == "tpu"
 
     fwd = [(i, (i + 1) % n_dev) for i in range(n_dev)]
     bwd = [(i, (i - 1) % n_dev) for i in range(n_dev)]
@@ -635,8 +637,6 @@ def dist_slab_spmv(mat: DistSlab, x: jax.Array, mesh: Mesh) -> jax.Array:
         sl = SlabELL(vals=vals_blk[0], lidx=lidx_blk[0], win_lo=wl_blk[0],
                      bucket_cnt=None, shape=(r, x_ext.shape[0]),
                      buckets=buckets)
-        if use_pallas:
-            return slab_spmv_pallas(sl, x_ext)
         return slab_spmv_xla(sl, x_ext)
 
     return jax.shard_map(

@@ -3,17 +3,18 @@
 The reference's only parallel construct is single-process
 (``SparseMatPar`` + a dead intra-process mpsc sketch,
 reference: src/sparsemat_par.rs:3-7,37-68).  This module supplies what a
-TPU pod actually needs around the dist layer in ``parallel/dist.py``:
+multi-host GPU cluster needs around the dist layer in ``parallel/dist.py``:
 
 * ``init_distributed`` — one-call wrapper over ``jax.distributed.initialize``
   so every host joins the same JAX runtime (no-op when single-process);
 * ``make_host_mesh`` — a 1-D row mesh whose device order is HOST-MAJOR:
   consecutive row blocks land on the same host, so the halo exchanges of
-  ``DistDIA``/``DistSlab`` ride ICI between local chips and only the
-  once-per-host block boundary crosses DCN;
-* ``make_mesh_2d`` — an explicit (hosts × local chips) mesh for algorithms
-  that want to treat the two interconnects differently (e.g. hierarchical
-  reductions: psum over 'chips' on ICI, then over 'hosts' on DCN).
+  ``DistDIA``/``DistSlab`` ride NVLink between local cards and only the
+  once-per-host block boundary crosses the network;
+* ``make_mesh_2d`` — an explicit (hosts × local devices) mesh for
+  algorithms that want to treat the two interconnects differently (e.g.
+  hierarchical reductions: psum over 'chips' within a host, then over
+  'hosts').
 
 Multi-process correctness is exercised by tests/test_multiprocess.py, which
 launches real separate processes on the CPU backend; weak scaling is
@@ -38,10 +39,11 @@ def init_distributed(coordinator_address: str | None = None,
                      local_device_ids=None) -> None:
     """Join (or create) the multi-host JAX runtime.
 
-    On a real pod each host calls this once before building meshes; with the
-    standard TPU metadata environment all arguments are auto-detected and may
-    be omitted.  Safe to call when single-process (explicit num_processes=1
-    is a no-op) or to call twice (second call is ignored).
+    Each host calls this once before building meshes, with the
+    coordinator's ``host:port``, the process count and its own process id
+    (no cluster environment supplies them).  Safe to call when
+    single-process (explicit num_processes=1 is a no-op) or to call twice
+    (second call is ignored).
     """
     global _initialized
     if _initialized:
@@ -70,13 +72,13 @@ def make_host_mesh(axis_name: str = ROWS_AXIS) -> Mesh:
 
     Drop-in for ``mesh.make_mesh()`` on a pod: the contiguous block-row
     partition of the dist layer then maps block i//chips_per_host to host
-    i//chips_per_host — DistDIA's ppermute halo ring crosses DCN exactly
-    once per host boundary and stays on ICI otherwise."""
+    i//chips_per_host — DistDIA's ppermute halo ring crosses the network exactly
+    once per host boundary and stays within a host otherwise."""
     return Mesh(host_major_devices(), (axis_name,))
 
 
 def make_mesh_2d(host_axis: str = "hosts", chip_axis: str = "chips") -> Mesh:
-    """(n_hosts × chips_per_host) mesh — outer axis spans DCN, inner ICI."""
+    """(n_hosts × chips_per_host) mesh — outer axis spans hosts, inner the devices of one host."""
     devs = host_major_devices()
     n_proc = jax.process_count()
     per_host = devs.size // n_proc

@@ -2,7 +2,7 @@
 
 Reference counterpart: the ``LinearSolver`` trait + unpreconditioned
 ``ConjugateGradient`` (reference: src/linearsolver.rs:6-61) — the library's
-single solver, written against ``SparseMatrix::mvp``.  TPU-native redesign:
+single solver, written against ``SparseMatrix::mvp``.  Redesign:
 
 * each solver is a pure function ``solve(A, b, x0) -> (x, SolveInfo)``;
   the whole iteration compiles to one XLA program (no per-iteration host
@@ -17,7 +17,7 @@ single solver, written against ``SparseMatrix::mvp``.  TPU-native redesign:
 Solver set: CG (reference parity), preconditioned CG, BiCGStab and
 restarted GMRES (nonsymmetric), Chebyshev semi-iteration (inner-product-free
 — zero collectives per distributed iteration), Jacobi / weighted Jacobi, and
-Gauss-Seidel / SOR via a sequential scan sweep (latency-bound on TPU;
+Gauss-Seidel / SOR via a sequential scan sweep (latency-bound on a device;
 provided for capability parity per BASELINE.json "Jacobi/Gauss-Seidel/
 CG-style").
 
@@ -36,6 +36,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from .types import is_float_dtype
+
+#: float32 contractions below ask for true f32: by default a GPU matmul may
+#: run in TF32 (~1e-3 relative error), too coarse for a solver
+_HI = jax.lax.Precision.HIGHEST
 
 
 class SolveInfo(NamedTuple):
@@ -75,10 +79,9 @@ def _dot(a, b):
 
 
 def _as_matvec_dot(A) -> Callable:
-    """v → (A·v, v·(A·v)) — CG's hot pair.  Fused into the SpMV kernel when
-    the operator supports it (ops.spmv_dot: the bilinear form then reads the
-    operand chunk already in VMEM instead of re-streaming A·v from HBM —
-    one full vector pass saved per CG iteration)."""
+    """v → (A·v, v·(A·v)) — CG's hot pair (ops.spmv_dot: XLA fuses the dot
+    into the SpMV as a multi-output reduction, so pᵀAp costs no extra pass
+    over memory)."""
     if callable(A) and not hasattr(A, "shape"):
         def mvd(v):
             y = A(v)
@@ -207,7 +210,7 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
     """Restarted GMRES — capability extension for nonsymmetric systems (the
     reference's ``LinearSolver`` trait has only CG, src/linearsolver.rs:12).
 
-    TPU-native structure: the Arnoldi cycle is a ``lax.fori_loop`` over a
+    Structure: the Arnoldi cycle is a ``lax.fori_loop`` over a
     *static* restart window (Krylov basis V: (restart+1, n) fixed shape),
     Givens rotations maintain the QR of the Hessenberg matrix so the
     residual norm is available every step without solving; converged steps
@@ -230,10 +233,11 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         V, H, cs, sn, g, active, steps = carry
         w = matvec(precond(V[j]))
         # modified Gram-Schmidt against all basis vectors (rows > j are zero)
-        h = V @ w                                   # (m+1,) projections
+        # HIGHEST: a float32 contraction may otherwise run in TF32
+        h = jnp.dot(V, w, precision=_HI)            # (m+1,) projections
         mask = (jnp.arange(m + 1) <= j)
         h = jnp.where(mask, h, 0)
-        w = w - V.T @ h
+        w = w - jnp.dot(V.T, h, precision=_HI)
         h_next = jnp.sqrt(_dot(w, w))
         v_next = jnp.where(h_next > 0, w / jnp.where(h_next > 0, h_next, 1), 0)
         # apply previous Givens rotations to the new column
@@ -275,7 +279,7 @@ def gmres(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
         # final residual, which must not leak into the correction
         g_solve = jnp.where(jnp.arange(m) < steps, g[:m], 0)
         y = jax.scipy.linalg.solve_triangular(H[:m, :m], g_solve, lower=False)
-        x = x + precond(V[:m].T @ y)
+        x = x + precond(jnp.dot(V[:m].T, y, precision=_HI))
         r2 = b - matvec(x)
         res2 = jnp.sqrt(_dot(r2, r2))
         return (x, res2, k + m, res2 < threshold)
@@ -372,7 +376,7 @@ def sor(A, b, x0=None, *, tol: float = 1e-12, rtol: float = 0.0,
 
     Each sweep is a sequential ``lax.scan`` over rows in ELL layout — the
     update for row i reads already-updated x entries.  This is inherently
-    latency-bound on TPU (the VPU sits idle between rows); it exists for
+    latency-bound on a device (one row per step); it exists for
     capability parity and as a smoother.  Prefer ``jacobi``/``cg`` for speed.
     """
     b = _check_operands(A, b)
@@ -436,10 +440,9 @@ def refine(A, b, x0=None, *, tol: float = 1e-8, rtol: float = 0.0,
     """Mixed-precision iterative refinement: high-precision (b.dtype,
     typically f64) residuals steer low-precision (f32) inner solves.
 
-    TPU rationale: the chip has no f64 vector hardware — XLA emulates f64
-    at a large slowdown — but refinement only needs ONE emulated-f64 SpMV
-    per outer step (r = b − Ax) while the thousands of inner iterations run
-    at full f32 speed.  Classic Wilkinson iterative refinement; reaches
+    Rationale: f64 arithmetic runs at a fraction of the f32 rate and moves
+    twice the bytes, but refinement only needs ONE f64 SpMV per outer step
+    (r = b − Ax) while the thousands of inner iterations run at f32 speed.  Classic Wilkinson iterative refinement; reaches
     residuals far below f32 stagnation (the f64 capability the reference
     gets for free from Rust generics, src/types.rs:70-77 + the f64 golden
     CG test src/lib.rs:37-52).
@@ -498,9 +501,8 @@ def refine_host(A_high, b, x0=None, *, tol: float = 1e-8, rtol: float = 0.0,
                 low_dtype=jnp.float32, M=None):
     """Iterative refinement with the HIGH-precision half on the host.
 
-    ``refine`` above needs ``jax_enable_x64`` for its f64 vectors — a
-    process-global mode that conflicts with the default-f32 session the
-    rest of a program runs in.  This variant sidesteps the mode entirely:
+    ``refine`` above needs f64 device arrays (``with
+    jax.enable_x64(True):``).  This variant keeps the device in f32:
     the outer residual r = b − A x runs as a host numpy/scipy **float64**
     SpMV (the reference's f64 capability, src/types.rs:70-77 + the f64
     golden CG at src/lib.rs:37-52), while the thousands of inner iterations
@@ -573,10 +575,10 @@ class BlockJacobiPreconditioner:
     """M⁻¹ = blockdiag(A₀₀⁻¹, A₁₁⁻¹, …) over contiguous ``block_size``-row
     blocks.
 
-    TPU-idiomatic: the block diagonal is densified once at construction
+    The block diagonal is densified once at construction
     (one batched scatter), inverted with one batched ``linalg.inv``, and
     each application is a single (n_blocks, bs, bs) × (n_blocks, bs)
-    batched matmul — MXU work, no triangular solves.  Structurally-empty
+    batched matmul, no triangular solves.  Structurally-empty
     diagonal positions get a unit pivot so the inverse exists for matrices
     with empty rows."""
 
@@ -601,13 +603,15 @@ class BlockJacobiPreconditioner:
         diag = jnp.diagonal(blocks, axis1=1, axis2=2)
         fix = jnp.where(diag == 0, 1.0, 0.0).astype(blocks.dtype)
         blocks = blocks + fix[:, :, None] * jnp.eye(bs, dtype=blocks.dtype)
+        # jnp.linalg.inv's own products already run at HIGHEST precision
         return cls(blocks_inv=jnp.linalg.inv(blocks), n=n)
 
     def apply(self, r):
         bs = self.blocks_inv.shape[1]
         nb = self.blocks_inv.shape[0]
         rp = jnp.pad(r, (0, nb * bs - self.n)).reshape(nb, bs)
-        z = jnp.einsum("bij,bj->bi", self.blocks_inv.astype(r.dtype), rp)
+        z = jnp.einsum("bij,bj->bi", self.blocks_inv.astype(r.dtype), rp,
+                       precision=_HI)
         return z.reshape(-1)[: self.n]
 
 

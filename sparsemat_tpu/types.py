@@ -1,14 +1,14 @@
 """Dtype and index-width policy for sparsemat_tpu.
 
-TPU-native equivalent of the reference's compile-time generic type layer
+Equivalent of the reference's compile-time generic type layer
 (reference: src/types.rs:14-77 — ``IndexType`` with MAX/ZERO/ONE constants and
 usize conversions, ``ValueType`` blanket numeric trait, ``FloatType`` marker
-gating solvers).  On TPU the natural index register width is int32; narrower
+gating solvers).  The natural device index width is int32; narrower
 widths (int8/int16) are supported as *storage* dtypes that are widened to
 int32 at compute time, mirroring the reference's u8..u64 index generics.
 
 The reference uses ``Index::MAX`` as an UNSET sentinel terminating index-list
-chains (src/indexlist.rs:33, src/sparsematrix.rs:68).  The frozen TPU formats
+chains (src/indexlist.rs:33, src/sparsematrix.rs:68).  The frozen formats
 have no chains; UNSET survives only as the padding marker exported by the
 assembly builder and in ELL padding masks.
 """
@@ -27,7 +27,7 @@ import numpy as np
 #: reference src/types.rs:47-51).  int64 requires jax_enable_x64.
 INDEX_DTYPES = (jnp.int8, jnp.int16, jnp.int32, jnp.int64)
 
-#: Default index dtype — the TPU's native scalar/vector integer width.
+#: Default index dtype — the device's native integer width for indexing.
 DEFAULT_INDEX_DTYPE = jnp.int32
 
 #: Value dtypes (≈ ValueType, reference src/types.rs:54-68).
@@ -44,7 +44,7 @@ VALUE_DTYPES = (
 
 #: Float dtypes allowed in iterative solvers (≈ FloatType marker,
 #: reference src/types.rs:70-77 — f32/f64 only; we additionally admit
-#: bfloat16 storage with float32 accumulation on TPU).
+#: bfloat16 storage with float32 accumulation).
 FLOAT_DTYPES = (jnp.float32, jnp.float64, jnp.bfloat16, jnp.float16)
 
 
@@ -76,7 +76,7 @@ def is_float_dtype(dtype: Any) -> bool:
 
 
 def compute_index_dtype(index_dtype: Any) -> Any:
-    """Widen a storage index dtype to the TPU-native compute width (int32+)."""
+    """Widen a storage index dtype to the compute width (int32+)."""
     dt = jnp.dtype(index_dtype)
     if dt.itemsize < 4:
         return jnp.dtype(jnp.int32)
@@ -86,7 +86,7 @@ def compute_index_dtype(index_dtype: Any) -> Any:
 def accum_dtype(dtype: Any) -> Any:
     """Accumulation dtype for reductions: low-precision floats accumulate in f32.
 
-    TPU MXU/VPU native accumulation is float32; float64 stays float64 (requires
+    Low-precision floats accumulate in float32; float64 stays float64 (requires
     jax_enable_x64 — reference solvers are f64, src/lib.rs:38).
     """
     dt = jnp.dtype(dtype)

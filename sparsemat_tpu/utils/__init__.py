@@ -6,12 +6,18 @@ per-kernel roofline reporting (nnz/s, GB/s), which lives here.
 """
 
 from .profiling import (
+    DEVICE_PEAKS,
     KernelReport,
+    card_name_and_power_limit,
+    compile_cache_dir,
+    device_peaks,
+    enable_compile_cache,
     roofline_spmv,
-    sync,
     time_chained_op,
     trace_to,
 )
 
-__all__ = ["KernelReport", "roofline_spmv", "time_chained_op", "sync",
-           "trace_to"]
+__all__ = ["DEVICE_PEAKS", "KernelReport", "card_name_and_power_limit",
+           "compile_cache_dir",
+           "device_peaks", "enable_compile_cache", "roofline_spmv",
+           "time_chained_op", "trace_to"]

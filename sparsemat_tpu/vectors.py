@@ -1,9 +1,9 @@
 """Vector types.
 
 The reference defines a ``Vector`` trait with dense and sparse impls
-(reference: src/vector.rs:5-64, src/densevec.rs, src/sparsevec.rs).  In the
-TPU framework the *compute* dense vector is simply a ``jax.Array`` — every
-solver and op takes/returns plain arrays so they compose with jit/pjit.  The
+(reference: src/vector.rs:5-64, src/densevec.rs, src/sparsevec.rs).  Here the
+*compute* dense vector is simply a ``jax.Array`` — every
+solver and op takes/returns plain arrays so they compose with jit.  The
 classes here cover the API-parity surface:
 
 * ``DenseVec`` — host-side growable vector with the reference's
@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterator, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,7 +34,8 @@ def inner_prod(a, b):
     """⟨a, b⟩ (≈ Vector::inner_prod, src/vector.rs:50-53)."""
     a = jnp.asarray(a)
     b = jnp.asarray(b)
-    return jnp.dot(a, b, preferred_element_type=accum_dtype(a.dtype))
+    return jnp.dot(a, b, preferred_element_type=accum_dtype(a.dtype),
+                   precision=jax.lax.Precision.HIGHEST)
 
 
 def norm_squared(a):

@@ -1,15 +1,15 @@
-"""spmv_chain: fused k-step SpMV (kernels/dia.py chain kernel + fallback).
+"""spmv_chain: k chained SpMVs as one ``lax.fori_loop`` program.
 
 The chain is the hot loop of the reference's solver usage of mvp
 (reference: src/linearsolver.rs:41-49 runs one mvp per iteration).
 """
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import jax.numpy as jnp
 
 import sparsemat_tpu as smt
-from sparsemat_tpu.kernels.dia import dia_chain_plan, dia_spmv_chain_pallas
 
 
 def _banded(n, offsets, seed=0, scale=0.05):
@@ -21,12 +21,12 @@ def _banded(n, offsets, seed=0, scale=0.05):
 
 @pytest.mark.parametrize("k", [1, 2, 5])
 def test_chain_kernel_interpret(k):
+    """DIA chain under jit (one compiled loop) vs k scipy matvecs."""
     ms = _banded(300, [-3, -1, 0, 1, 3])
     dia = smt.CSR.from_scipy(ms).to_dia()
-    assert dia_chain_plan(dia) is not None
     x = np.random.default_rng(1).standard_normal(300).astype(np.float32)
-    y = np.asarray(dia_spmv_chain_pallas(dia, jnp.asarray(x), k,
-                                         interpret=True))
+    y = np.asarray(jax.jit(smt.spmv_chain, static_argnums=2)(
+        dia, jnp.asarray(x), k))
     ref = x.copy()
     for _ in range(k):
         ref = (ms @ ref).astype(np.float32)
@@ -34,15 +34,18 @@ def test_chain_kernel_interpret(k):
 
 
 def test_chain_dispatch_fallback():
-    """On CPU the dispatch takes the lax.fori_loop-of-spmv path."""
+    """Every format takes the same lax.fori_loop-of-spmv path."""
     ms = _banded(200, [-2, 0, 2], seed=3)
     csr = smt.CSR.from_scipy(ms)
     x = np.random.default_rng(2).standard_normal(200).astype(np.float32)
-    y = np.asarray(smt.spmv_chain(csr, x, 3))
     ref = x.copy()
     for _ in range(3):
         ref = (ms @ ref).astype(np.float32)
-    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-6)
+    for mat in (csr, csr.to_dia(), csr.to_ell()):
+        y = np.asarray(smt.spmv_chain(mat, x, 3))
+        np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-6)
+        jaxpr = str(jax.make_jaxpr(lambda v: smt.spmv_chain(mat, v, 3))(x))
+        assert "while" in jaxpr or "scan" in jaxpr  # one loop, not k unrolled
 
 
 def test_chain_requires_square():

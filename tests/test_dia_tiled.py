@@ -1,14 +1,11 @@
-"""Lane-packed (tiled) DIA kernel — the r4 headline fix.
+"""DIA SpMV (static shifted slices, ``formats/dia.py``) and the CG inner
+pair ``spmv_dot`` on every format.
 
-The 1-D (n_d, n) diagonal array is stored in (8,128)-padded tiles, so any
-read amplifies 8/n_d× (measured 1.6× at n_d=5 — the whole gap between the
-r3 headline at ~505 GB/s and the chip's ~720 GB/s stream rate).  The 2-D
-kernel streams DIA.tdata (n_d, rows, 128) with halo BlockSpec views and
-static lane-rolls for non-128-multiple offsets; these tests pin its
-numerics in interpret mode, including multi-chunk grids and both roll
-directions.
+The cases cover offsets of both signs, offsets wider than 128, pure row
+shifts and matrices of a few thousand rows, each against scipy.
 """
 
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -16,7 +13,7 @@ import scipy.sparse as sp
 import jax.numpy as jnp
 
 import sparsemat_tpu as smt
-from sparsemat_tpu.kernels.dia import _dia_spmv_pallas_2d_impl, _plan
+from sparsemat_tpu.formats.dia import dia_spmv
 
 
 def banded(n, offs, seed=0):
@@ -27,76 +24,84 @@ def banded(n, offs, seed=0):
 
 
 @pytest.mark.parametrize("n,offs,C", [
-    (5000, (-64, -1, 0, 1, 64), 4096),      # 2 chunks, ±1 rolls
-    (300, (-7, 0, 13), 1024),               # sub-lane offsets both signs
-    (4096, (-1024, 0, 1024), 1024),         # 4 chunks, pure row shifts
-    (2048, (-129, -127, 0, 127, 129), 1024),  # offsets straddling a lane
+    (5000, (-64, -1, 0, 1, 64), 4096),
+    (300, (-7, 0, 13), 1024),
+    (4096, (-1024, 0, 1024), 1024),
+    (2048, (-129, -127, 0, 127, 129), 1024),
 ])
 def test_dia_tiled_vs_scipy(n, offs, C):
     m = banded(n, offs)
     dia = smt.CSR.from_scipy(m).to_dia()
-    assert dia.tdata is not None  # from_csr attaches the packed layout
+    assert dia.offsets == tuple(sorted(offs))
     rng = np.random.default_rng(1)
     x = rng.standard_normal(n).astype(np.float32)
-    h = max(abs(o) for o in offs)
-    H = 1 << (max(h, 1024) - 1).bit_length()
-    y = np.asarray(_dia_spmv_pallas_2d_impl(
-        dia.tdata, jnp.asarray(x), offsets=tuple(dia.offsets), n_rows=n,
-        H=H, C=C, interpret=True))
+    # C: a row-chunk length; the product must not depend on where x is cut
+    y = np.asarray(jax.jit(dia_spmv)(dia, jnp.asarray(x)))
     ref = m @ x
     err = np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-30)
     assert err < 1e-5
+    lo = min(C, n) // 2
+    np.testing.assert_allclose(y[lo:lo + 8], np.asarray(smt.spmv(dia, x))[lo:lo + 8],
+                               rtol=1e-6, atol=1e-6)
 
 
-def test_plan_powers_of_two():
-    plan = _plan(5, 4096, 1 << 24, 1 << 18)
-    assert plan is not None
-    H, C = plan
-    assert H & (H - 1) == 0 and C & (C - 1) == 0  # both powers of two
-    assert C % H == 0 or -(-(1 << 24) // C) == 1
-
-
-def test_with_tiled_round_trip():
+def test_dia_holds_one_copy_of_the_diagonals():
+    """The frozen DIA carries ``data`` and nothing else on the device: its
+    device bytes are n_diags × n_rows values, and scaling touches only
+    them."""
     m = banded(1000, (-3, 0, 5), seed=2)
-    dia = smt.CSR.from_scipy(m).to_dia().without_tiled()
-    assert dia.tdata is None
-    dia2 = dia.with_tiled()
-    np.testing.assert_array_equal(
-        np.asarray(dia2.tdata).reshape(dia2.tdata.shape[0], -1)[:, :1000],
-        np.asarray(dia.data))
-    s = dia2.scale(3.0)
-    np.testing.assert_allclose(
-        np.asarray(s.tdata).reshape(s.tdata.shape[0], -1)[:, :1000],
-        3.0 * np.asarray(dia.data), rtol=1e-6)
+    dia = smt.CSR.from_scipy(m).to_dia()
+    leaves = jax.tree_util.tree_leaves(dia)
+    assert len(leaves) == 1 and leaves[0].shape == (3, 1000)
+    s = dia.scale(3.0)
+    np.testing.assert_allclose(np.asarray(s.data), 3.0 * np.asarray(dia.data),
+                               rtol=1e-6)
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(smt.spmv(s, x)), 3.0 * (m @ x),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_dia_spmv_dot_fused_matches_separate():
-    """with_dot=True returns (A x, x·(A x)) bit-comparable to the separate
-    formulation (the CG hot pair, src/linearsolver.rs:43-45)."""
-    n, offs, C = 5000, (-64, -1, 0, 1, 64), 4096
+    """spmv_dot returns (A x, x·(A x)) equal to the separate spmv + dot
+    (the CG hot pair, src/linearsolver.rs:43-45)."""
+    n, offs = 5000, (-64, -1, 0, 1, 64)
     m = banded(n, offs)
     dia = smt.CSR.from_scipy(m).to_dia()
     rng = np.random.default_rng(3)
     x = rng.standard_normal(n).astype(np.float32)
-    h = max(abs(o) for o in offs)
-    H = 1 << (max(h, 1024) - 1).bit_length()
-    y, d = _dia_spmv_pallas_2d_impl(
-        dia.tdata, jnp.asarray(x), offsets=tuple(dia.offsets), n_rows=n,
-        H=H, C=C, with_dot=True, interpret=True)
+    y, d = jax.jit(smt.spmv_dot)(dia, jnp.asarray(x))
     ref_y = m @ x
     assert np.abs(np.asarray(y) - ref_y).max() / np.abs(ref_y).max() < 1e-5
     ref_d = float(x @ ref_y)
     assert abs(float(d) - ref_d) / max(abs(ref_d), 1e-30) < 1e-4
+    y2 = np.asarray(smt.spmv(dia, jnp.asarray(x)))
+    np.testing.assert_allclose(np.asarray(y), y2, rtol=1e-6,
+                               atol=1e-6 * np.abs(y2).max())
+
+
+FORMATS = {
+    "csr": lambda c: c,
+    "coo": lambda c: c.to_coo(),
+    "dia": lambda c: c.to_dia(),
+    "ell": lambda c: c.to_ell(),
+    "sell": lambda c: smt.SELL.from_csr(c, slice_height=8),
+    "gell": lambda c: c.to_gell(),
+    "well": lambda c: c.to_well(),
+    "slab": lambda c: c.to_slab(),
+    "slab_pack": lambda c: c.to_slab_pack(),
+    "slab_stream": lambda c: c.to_slab_stream(),
+    "strip": lambda c: c.to_strip(),
+    "route": lambda c: c.to_route(),
+    "bsr": lambda c: smt.BSR.from_csr(c),
+}
 
 
 def test_spmv_dot_dispatch_all_formats():
-    import sparsemat_tpu as smt2
     m = banded(800, (-5, 0, 7), seed=4)
     x = np.random.default_rng(5).standard_normal(800).astype(np.float32)
     ref_y = m @ x
     ref_d = float(x @ ref_y)
-    for mat in (smt2.CSR.from_scipy(m), smt2.CSR.from_scipy(m).to_dia(),
-                smt2.CSR.from_scipy(m).to_ell()):
-        y, d = smt2.spmv_dot(mat, jnp.asarray(x))
-        assert np.abs(np.asarray(y) - ref_y).max() / np.abs(ref_y).max() < 1e-5
-        assert abs(float(d) - ref_d) / abs(ref_d) < 1e-4
+    for fmt, make in FORMATS.items():
+        y, d = smt.spmv_dot(make(smt.CSR.from_scipy(m)), jnp.asarray(x))
+        assert np.abs(np.asarray(y) - ref_y).max() / np.abs(ref_y).max() < 1e-5, fmt
+        assert abs(float(d) - ref_d) / abs(ref_d) < 1e-4, fmt

@@ -147,6 +147,19 @@ def test_dist_slab_uneven_rows(mesh8):
     np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-3)
 
 
+def test_dist_slab_padding_blocks_add_no_halo(mesh8):
+    # 3496 rows: 437 rows/device round up to 512 (4 blocks), so the last
+    # device holds all-zero padding blocks; they must not widen the halo
+    rng = np.random.default_rng(13)
+    n = 3496
+    m = random_banded(n, (-40, -1, 0, 1, 40), seed=5)
+    dA = parallel.distribute_slab(smt.CSR.from_scipy(m), mesh8, rb=128)
+    assert dA.padded_rows > n and dA.halo_windows <= 1
+    x = rng.standard_normal(n).astype(np.float32)
+    y = dA.unpad(dA.matvec(dA.padded_vector(x, mesh8), mesh8))
+    np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-4)
+
+
 def test_dist_slab_halo_guard(mesh8):
     # span wider than a local shard must refuse with a clear error
     n = 1000

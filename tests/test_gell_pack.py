@@ -1,17 +1,15 @@
 """SlabPack (per-block-class buckets + spill overflow, formats/slab.py) and
-GELL (scatter-free gather ladder, formats/gell.py) — the round-3 formats for
+GELL (scatter-free gather ladder, formats/gell.py) — formats for
 mixed-degree FEM matrices and globally-scattered matrices."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
 import sparsemat_tpu as smt
-from sparsemat_tpu.kernels.spmv import (
-    slab_pack_spmv_pallas,
-    slab_pack_spmv_xla,
-)
+from sparsemat_tpu.kernels.spmv import slab_pack_spmv_xla
 from sparsemat_tpu.ops.matvec import _gell_spmv
 
 
@@ -52,8 +50,6 @@ def test_slab_pack_spmv_matches_scipy(spill):
     nrm = np.abs(ref).max()
     y = np.asarray(slab_pack_spmv_xla(pk, jnp.asarray(x)))
     np.testing.assert_allclose(y / nrm, ref / nrm, atol=1e-5)
-    y2 = np.asarray(slab_pack_spmv_pallas(pk, jnp.asarray(x), interpret=True))
-    np.testing.assert_allclose(y2 / nrm, ref / nrm, atol=1e-5)
     y3 = np.asarray(smt.spmv(pk, jnp.asarray(x)))
     np.testing.assert_allclose(y3 / nrm, ref / nrm, atol=1e-5)
 
@@ -132,8 +128,7 @@ def test_gell_spmm_and_empty_rows():
 # --- SlabStream: flat chunk stream with exact per-bucket heights --------------
 
 def test_slab_stream_spmv_matches_scipy():
-    from sparsemat_tpu.kernels.spmv import (slab_stream_spmv_pallas,
-                                            slab_stream_spmv_xla)
+    from sparsemat_tpu.kernels.spmv import slab_stream_spmv_xla
     m = mixed_degree()
     st = smt.SlabStream.from_csr(smt.CSR.from_scipy(m))
     x = np.random.default_rng(20).standard_normal(m.shape[1]).astype(np.float32)
@@ -141,8 +136,6 @@ def test_slab_stream_spmv_matches_scipy():
     nrm = np.abs(ref).max()
     y = np.asarray(slab_stream_spmv_xla(st, jnp.asarray(x)))
     np.testing.assert_allclose(y / nrm, ref / nrm, atol=1e-5)
-    y2 = np.asarray(slab_stream_spmv_pallas(st, jnp.asarray(x), interpret=True))
-    np.testing.assert_allclose(y2 / nrm, ref / nrm, atol=1e-5)
     y3 = np.asarray(smt.spmv(st, jnp.asarray(x)))
     np.testing.assert_allclose(y3 / nrm, ref / nrm, atol=1e-5)
 
@@ -166,37 +159,56 @@ def test_slab_stream_roundtrip_and_counts():
                         np.asarray(c2.indptr)), shape=st.shape)
     assert (m2 - m).nnz == 0
     assert int(np.asarray(st.n_non_zero_entries())) == m.nnz
-    # multi-call split path: force a tiny per-call chunk bound
-    import sparsemat_tpu.kernels.spmv as ks
-    old = ks._STREAM_MAX_CHUNKS_PER_CALL
-    ks._STREAM_MAX_CHUNKS_PER_CALL = 32
-    try:
-        from sparsemat_tpu.kernels.spmv import slab_stream_spmv_pallas
-        x = np.random.default_rng(23).standard_normal(
-            m.shape[1]).astype(np.float32)
-        y = np.asarray(slab_stream_spmv_pallas(st, jnp.asarray(x),
-                                               interpret=True))
-        ref = m @ x
-        np.testing.assert_allclose(y, ref, atol=1e-4 * np.abs(ref).max())
-    finally:
-        ks._STREAM_MAX_CHUNKS_PER_CALL = old
+    x = np.random.default_rng(23).standard_normal(
+        m.shape[1]).astype(np.float32)
+    y = np.asarray(jax.jit(smt.spmv)(st, jnp.asarray(x)))
+    ref = m @ x
+    np.testing.assert_allclose(y, ref, atol=1e-4 * np.abs(ref).max())
 
 
 def test_auto_format_global_scatter_skips_slab_freeze(monkeypatch):
-    """auto_format must reject SlabPack for global-scatter operands from
-    CSR stats alone — the unguarded freeze built a 1.8e9-slot, 13 GB
-    layout on the scircuit surrogate before the waste test could run."""
+    """auto_format never freezes SlabPack (the unguarded freeze built a
+    1.8e9-slot, 13 GB layout on the scircuit surrogate): a global-scatter
+    operand goes straight to GELL."""
     import sparsemat_tpu.formats as fmts
     from sparsemat_tpu.formats.slab import SlabPack
 
     def boom(*a, **k):
-        raise AssertionError("SlabPack.from_csr called despite the "
-                             "cheap pre-guard")
+        raise AssertionError("SlabPack.from_csr called by auto_format")
 
     monkeypatch.setattr(SlabPack, "from_csr", boom)
     rng = np.random.default_rng(0)
     m = sp.random(4000, 60000, 0.0005, format="csr", dtype=np.float32,
-                  random_state=rng)  # uniform WIDE scatter (span > x^T reach)
-    # max_ell_waste below 1 pushes past the ELL/SELL branches on CPU
-    out = fmts.auto_format(smt.CSR.from_scipy(m), max_ell_waste=0.5)
-    assert type(out).__name__ in ("GELL", "RouteStream")
+                  random_state=rng)  # uniform WIDE scatter
+    out = fmts.auto_format(smt.CSR.from_scipy(m))
+    assert type(out).__name__ == "GELL"
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("stencil", "DIA"), ("uniform_rows", "GELL"), ("mixed_degree", "GELL"),
+    ("power_law", "GELL"), ("empty", "CSR")])
+def test_auto_format_order(kind, want):
+    """DIA → GELL, the order the H100 measurements give (PERF.md)."""
+    n = 600
+    rng = np.random.default_rng(1)
+    if kind == "stencil":
+        m = sp.diags([1.0, -2.0, 1.0], [-30, 0, 30], shape=(n, n),
+                     format="csr", dtype=np.float32)
+    elif kind == "uniform_rows":
+        cols = rng.integers(0, n, (n, 6))
+        m = sp.csr_matrix((np.ones(n * 6, np.float32),
+                           (np.repeat(np.arange(n), 6), cols.ravel())),
+                          shape=(n, n))
+    elif kind == "mixed_degree":
+        m = mixed_degree(n=n)
+    elif kind == "power_law":
+        m = scatter_matrix(n=n)
+    else:
+        m = sp.csr_matrix((n, n), dtype=np.float32)
+    out = smt.auto_format(smt.CSR.from_scipy(m))
+    assert type(out).__name__ == want
+    if m.nnz:
+        x = rng.standard_normal(n).astype(np.float32)
+        ref = m @ x
+        np.testing.assert_allclose(np.asarray(smt.spmv(out, x)), ref,
+                                   atol=1e-4 * np.abs(ref).max())

@@ -1,8 +1,8 @@
 """Golden-semantics suite: the reference's own test matrices and expected
 values (reference: src/lib.rs:36-231), pinned with float tolerances.
 
-The reference asserts exact f32 equality and insertion-order iteration; the
-TPU build declares sorted canonical order and asserts values within
+The reference asserts exact f32 equality and insertion-order iteration;
+this build declares sorted canonical order and asserts values within
 tolerance (SURVEY.md §7d)."""
 
 import jax.numpy as jnp

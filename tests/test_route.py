@@ -1,5 +1,5 @@
 """RouteStream (statically-routed scattered SpMV) — freeze, routing-table
-correctness, interpret-mode kernels, dispatch, round-trips.
+correctness, the XLA table replay, dispatch, round-trips.
 
 The scatter regime the format targets is the reference's worst case for
 its serial row loop (src/sparsematrix.rs:146-158); correctness is pinned
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 import sparsemat_tpu as smt
 from sparsemat_tpu.formats.route import RouteStream, _euler_color_128
-from sparsemat_tpu.kernels.route import (route_spmv_pallas, route_spmv_xla)
+from sparsemat_tpu.kernels.route import route_spmv_xla
 
 
 def _rand_scatter(n, dens, seed, with_zero=False):
@@ -63,8 +63,6 @@ def test_route_spmv_vs_scipy(n, dens, seed):
     nrm = max(np.abs(y_ref).max(), 1e-30)
     y_xla = np.asarray(route_spmv_xla(rs, jnp.asarray(x)))
     assert np.abs(y_xla - y_ref).max() / nrm < 1e-5
-    y_pl = np.asarray(route_spmv_pallas(rs, jnp.asarray(x), interpret=True))
-    assert np.abs(y_pl - y_ref).max() / nrm < 1e-5
 
 
 def test_route_heavy_rows_zipf():
@@ -84,8 +82,6 @@ def test_route_heavy_rows_zipf():
     nrm = max(np.abs(y_ref).max(), 1e-30)
     y = np.asarray(route_spmv_xla(rs, jnp.asarray(x)))
     assert np.abs(y - y_ref).max() / nrm < 1e-5
-    y_pl = np.asarray(route_spmv_pallas(rs, jnp.asarray(x), interpret=True))
-    assert np.abs(y_pl - y_ref).max() / nrm < 1e-5
 
 
 def test_route_round_trip_and_stored_zero():

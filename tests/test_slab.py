@@ -1,8 +1,7 @@
 """SlabELL — slab-windowed ELL for scattered bounded-span rows
-(formats/slab.py, kernels/spmv.py slab_spmv_*)."""
+(formats/slab.py, kernels/spmv.py slab_spmv_xla)."""
 
-import dataclasses
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +9,7 @@ import scipy.sparse as sp
 
 import sparsemat_tpu as smt
 from sparsemat_tpu.formats.slab import SlabELL
-from sparsemat_tpu.kernels.spmv import slab_spmv_pallas, slab_spmv_xla
+from sparsemat_tpu.kernels.spmv import slab_spmv_xla
 
 
 def scattered_band(n, k, band, seed=0):
@@ -47,7 +46,7 @@ def test_slab_pallas_interpret(n, k, band, rb):
     m = scattered_band(n, k, band, seed=3)
     sl = SlabELL.from_csr(smt.CSR.from_scipy(m), rb=rb)
     x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
-    y = slab_spmv_pallas(sl, jnp.asarray(x), interpret=True)
+    y = jax.jit(slab_spmv_xla)(sl, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-3)
 
 
@@ -62,25 +61,19 @@ def test_slab_empty_rows_and_tail_block():
     m = sp.csr_matrix(dense)
     sl = smt.CSR.from_scipy(m).to_slab()
     x = rng.standard_normal(n).astype(np.float32)
-    y = slab_spmv_pallas(sl, jnp.asarray(x), interpret=True)
+    y = smt.spmv(sl, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), dense @ x, atol=1e-4)
     y2 = slab_spmv_xla(sl, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y2), dense @ x, atol=1e-4)
 
 
 def test_slab_grid_chunking():
-    # force multiple pallas_calls by lowering the per-call block bound
-    from sparsemat_tpu.kernels import spmv as kmod
-
+    # 32 row blocks: each block's result lands in its own rows
     m = scattered_band(4096, 5, 20, seed=6)
-    sl = SlabELL.from_csr(smt.CSR.from_scipy(m), rb=128)  # 32 blocks
+    sl = SlabELL.from_csr(smt.CSR.from_scipy(m), rb=128)
+    assert sl.n_row_blocks == 32
     x = np.random.default_rng(7).standard_normal(4096).astype(np.float32)
-    old = kmod._SLAB_MAX_BLOCKS_PER_CALL
-    try:
-        kmod._SLAB_MAX_BLOCKS_PER_CALL = 10
-        y = slab_spmv_pallas(sl, jnp.asarray(x), interpret=True)
-    finally:
-        kmod._SLAB_MAX_BLOCKS_PER_CALL = old
+    y = jax.jit(slab_spmv_xla)(sl, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-4)
 
 
@@ -88,7 +81,7 @@ def test_slab_dispatch_and_checkpoint(tmp_path):
     m = scattered_band(128, 6, 25, seed=8)
     sl = smt.CSR.from_scipy(m).to_slab()
     x = np.random.default_rng(9).standard_normal(128).astype(np.float32)
-    y = smt.spmv(sl, x)  # CPU → xla oracle path
+    y = smt.spmv(sl, x)
     np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-4)
     from sparsemat_tpu import checkpoint
 

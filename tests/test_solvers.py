@@ -211,7 +211,7 @@ def test_jacobi_poisson2d_f64():
 
 def test_refine_mixed_precision_reaches_f64_residual():
     """Iterative refinement (f64 outer / f32 inner) reaches residuals far
-    below f32 stagnation — the TPU route to BASELINE config 3."""
+    below f32 stagnation — one route to BASELINE config 3."""
     lap = poisson2d(48)                      # 2304 rows, cond ~ 1e3
     A = smt.CSR.from_scipy(lap)              # f64 storage
     b = jnp.ones((lap.shape[0],), jnp.float64)

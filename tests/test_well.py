@@ -1,14 +1,14 @@
-"""WELL format + Pallas SpMV kernel correctness (CPU: XLA reference impl and
-interpret-mode kernel; the compiled kernel is exercised on TPU by bench.py
-and the verify drives)."""
+"""WELL format + its SpMV (kernels/spmv.py well_spmv_xla), eager and under
+jit, against scipy."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
 import sparsemat_tpu as smt
-from sparsemat_tpu.kernels.spmv import well_spmv_pallas, well_spmv_xla
+from sparsemat_tpu.kernels.spmv import well_spmv_xla
 
 
 def cases():
@@ -47,7 +47,7 @@ def test_well_spmv_xla(name, mat):
 def test_well_spmv_pallas_interpret(name, mat):
     well = smt.CSR.from_scipy(mat).to_well()
     x = np.random.default_rng(2).standard_normal(mat.shape[1]).astype(np.float32)
-    y = well_spmv_pallas(well, jnp.asarray(x), interpret=True)
+    y = jax.jit(well_spmv_xla)(well, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), mat @ x, rtol=1e-4, atol=1e-5)
 
 
@@ -62,7 +62,7 @@ def test_well_k_tile_cap_overflow_tiles():
     x = rng.standard_normal(128).astype(np.float32)
     y = well_spmv_xla(well, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), mat @ x, rtol=1e-4, atol=1e-5)
-    y2 = well_spmv_pallas(well, jnp.asarray(x), interpret=True)
+    y2 = smt.spmv(well, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y2), mat @ x, rtol=1e-4, atol=1e-5)
 
 
@@ -84,46 +84,37 @@ def test_well_fill_ratio():
 
 
 def test_well_chunked_kernel_matches_xla():
-    # force multi-chunk execution (SMEM-bounded tile ranges) on a small matrix
-    import dataclasses as _dc
-
+    # many tiles per row block and several windows per row: the scatter-add
+    # of tile partials into row blocks must sum duplicates
     import scipy.sparse as sp
-
-    from sparsemat_tpu.formats import well as well_mod
-    from sparsemat_tpu.kernels.spmv import well_spmv_pallas, well_spmv_xla
 
     rng = np.random.default_rng(42)
     dense = rng.standard_normal((64, 512)).astype(np.float32)
     dense[rng.random((64, 512)) > 0.1] = 0
     w = smt.CSR.from_scipy(sp.csr_matrix(dense)).to_well()
     assert w.n_tiles > 4
-    chunked = _dc.replace(w, chunks=well_mod._chunk_bounds(
-        np.asarray(w.tile_rows), -(-64 // well_mod.ROW_BLOCK), max_tiles=3))
-    assert len(chunked.chunks) > 1
+    assert np.unique(np.asarray(w.tile_rows)).size < w.n_tiles
     x = rng.standard_normal(512).astype(np.float32)
+    y_jit = jax.jit(well_spmv_xla)(w, jnp.asarray(x))
     y_ref = well_spmv_xla(w, jnp.asarray(x))
-    y_chunked = well_spmv_pallas(chunked, jnp.asarray(x), interpret=True)
-    np.testing.assert_allclose(np.asarray(y_chunked), np.asarray(y_ref),
+    np.testing.assert_allclose(np.asarray(y_jit), np.asarray(y_ref),
                                atol=1e-4)
     np.testing.assert_allclose(np.asarray(y_ref), dense @ x, atol=1e-4)
 
 
 def test_dia_pallas_kernel_edges_interpret():
-    # boundary-chunk edge handling of the Pallas DIA kernel (interpret mode):
-    # multi-chunk with unaligned tail, single chunk, tiny matrix
+    # DIA edge handling: offsets wider than 128, a tail that is no multiple
+    # of anything, a tiny matrix — the zero-padded x slices must line up
     import scipy.sparse as sp
 
-    from sparsemat_tpu.kernels.dia import dia_spmv_pallas
-
     rng = np.random.default_rng(3)
-    for n, offs, chunk in [(5000, (-130, -1, 0, 1, 130), 2048),
-                           (3000, (-2, 0, 2), 1 << 17),
-                           (1030, (-7, 0, 7), 1024)]:
+    for n, offs in [(5000, (-130, -1, 0, 1, 130)), (3000, (-2, 0, 2)),
+                    (1030, (-7, 0, 7)), (9, (-8, 0, 8))]:
         diags = [rng.standard_normal(n - abs(o)).astype(np.float32)
                  for o in offs]
         m = sp.diags(diags, offs, shape=(n, n), format="csr")
         A = smt.CSR.from_scipy(m).to_dia()
         x = rng.standard_normal(n).astype(np.float32)
-        y = dia_spmv_pallas(A, jnp.asarray(x), chunk=chunk, interpret=True)
+        y = jax.jit(smt.spmv)(A, jnp.asarray(x))
         np.testing.assert_allclose(np.asarray(y), m @ x, atol=1e-4,
                                    err_msg=f"n={n} offs={offs}")
